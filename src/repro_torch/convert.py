@@ -1,0 +1,72 @@
+"""Carry tensor-store state across as plain numpy data.
+
+The plain form of a store is ``(entries, life)``:
+
+* ``entries`` — ``{key: ({name: (values, versions, sparse)}, lamport)}``
+  with ``values`` ``[rows, chunk]`` and ``versions`` ``[rows]`` int32
+  numpy arrays. ``sparse`` is None for a dense tensor (``rows`` is its
+  chunk count) or ``(idx, n_chunks)`` for a sparse row set (``idx`` the
+  sorted chunk positions of the rows).
+* ``life`` — ``[(key, (epoch, expiry))]``, the lifecycle table.
+
+bf16 values travel as 2-byte void arrays (view them as
+``ml_dtypes.bfloat16``, or pass such an array in: any 2-byte non-float
+dtype is read as bfloat16).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Iterable, Mapping, Tuple
+
+import numpy as np
+
+from .core.store import LatticeStore
+from .core.tensor_lattice import (ChunkedTensor, TensorState, sparse_chunks)
+from .dtypes import BF16_NP, to_numpy, to_torch
+
+
+def _host(values) -> np.ndarray:
+    a = np.asarray(values)
+    if a.dtype.itemsize == 2 and a.dtype.kind not in "fiu":
+        a = a.view(BF16_NP)       # ml_dtypes.bfloat16 or a raw 2-byte void
+    return a
+
+
+def store_from_numpy(entries: Mapping[str, Tuple[Mapping[str, tuple], int]],
+                     life: Iterable = (), *, device="cuda") -> LatticeStore:
+    """The port's :class:`LatticeStore` holding ``entries`` (see the
+    module docstring): dense tensors on ``device``, sparse row sets as
+    host numpy (their place in the port, as in the JAX package)."""
+    out: Dict[str, Any] = {}
+    for key, (tensors, lamport) in entries.items():
+        chunks = {}
+        for name, (vals, vers, sparse) in tensors.items():
+            vals = _host(vals)
+            vers = np.asarray(vers, dtype=np.int32)
+            if sparse is None:
+                chunks[name] = ChunkedTensor(to_torch(vals, device),
+                                             to_torch(vers, device))
+            else:
+                idx, n_chunks = sparse
+                chunks[name] = sparse_chunks(n_chunks, idx, vals, vers)
+        out[key] = TensorState.of(chunks, lamport=int(lamport))
+    return LatticeStore.of(out, dict(life))
+
+
+def store_to_numpy(store: LatticeStore) -> Tuple[dict, list]:
+    """``(entries, life)`` of a tensor-only store, all on the host."""
+    entries: Dict[str, Any] = {}
+    for key, val in store.entries:
+        if not isinstance(val, TensorState):
+            raise TypeError(f"key {key!r} holds {type(val).__name__}, not "
+                            "a TensorState")
+        tensors = {}
+        for name, ct in val.chunks:
+            if ct.is_sparse:
+                tensors[name] = (np.asarray(ct.vals), np.asarray(ct.vers),
+                                 (np.asarray(ct.idx), ct.n_chunks))
+            else:
+                tensors[name] = (to_numpy(ct.values), to_numpy(ct.versions),
+                                 None)
+        entries[key] = (tensors, val.lamport)
+    return entries, list(store.life)
