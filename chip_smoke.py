@@ -5,14 +5,26 @@ NVIDIA card. Run from the root of a checkout:
     python3 chip_smoke.py
 
 1. Build: prints the card's name and power limit, then compiles every
-   CUDA source of the port with ``nvcc`` (all started together).
+   CUDA source of the port with ``nvcc`` (all started together) and
+   logs each kernel's registers and spills.
 2. Kernel parity: each of the four δ-CRDT kernels against its plain
    PyTorch version at the main path's shapes ([453113, 1024], scatter
    r=4096) and at ragged small shapes, in f32, bf16 and f16 — values,
    versions and max|x| bit-exact, Σx² to rtol 1e-4 — with CUDA-event
    times (median of 20) at the main shape in each dtype beside the
-   bytes-over-bandwidth bound.
-3. Main path: three device-resident ``StoreReplica``s (basic mode,
+   bytes-over-bandwidth bound. Then both flash kernels against their
+   plain versions (``ref.attention_ref`` / ``decode_ref``) in f32 (rtol
+   = atol = 2e-5, TF32 off), bf16 and f16 (one unit in the last place of
+   the output dtype at max|out|): prefill at the served shapes of
+   qwen1.5-0.5b and qwen2-1.5b (GQA, head_dim 128; 1,000 tokens, which
+   no tile divides), at 4,096 tokens with gemma2's window, softcap and
+   query scale, and at small shapes with a window, a softcap and a
+   scale; decode against the served caches, a ring with empty slots, a
+   wrapped ring with a window and a row with no valid slot (exactly 0).
+   Times at the served shapes beside the bound and the time of
+   ``scaled_dot_product_attention`` on the same inputs (a yardstick the
+   port never calls).
+3. Store path: three device-resident ``StoreReplica``s (basic mode,
    ``WireCodec(to_device=True)``, full mesh over a lossy, duplicating
    ``Simulator``) replicate a store holding the parameter set of
    qwen1.5-0.5b (one key per parameter tensor, 290 keys, f32 chunks of
@@ -21,10 +33,21 @@ NVIDIA card. Run from the root of a checkout:
    2,048 rows over 4 tensors per round, as delta-groups of two
    δ-mutations), and the mesh converges again. The replicas must equal
    each other and an independent numpy last-writer-wins replay of every
-   write, and every kernel must have launched on this path.
+   write, and every δ-CRDT kernel must have launched on this path.
 4. Steady-state ingest: launches and staged bytes of one wire ingest are
    the same at the full and at half the store size.
 5. Top-k: the resident digest ranking equals the host greedy selection.
+6. Serve path: ``repro_torch.launch.serve``'s model part serves
+   qwen1.5-0.5b (published config, bf16, random weights from the seed)
+   to 4 requests of 1,000 prompt tokens with 32 greedy tokens each, then
+   qwen2-1.5b to 2 requests with 16 tokens, with ``attn_impl="chunked"``:
+   attention runs in the flash kernels, exactly once per layer for the
+   prefill and once per layer per decode step. The plain path
+   (``attn_impl="naive"``) then scores the same tokens (teacher forcing)
+   and every step's logits must agree within a bf16 tolerance, the
+   greedy tokens wherever the plain path's top-1/top-2 margin exceeds
+   twice the logits' gap; and an f32 run of qwen1.5-0.5b at full width,
+   2 layers deep, must agree with its plain path at rtol = atol = 1e-3.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase
 raises and the script exits non-zero without it, as it does when no card
@@ -58,8 +81,27 @@ TPU_KERNEL = {                   # the Pallas kernel each CUDA kernel replaces
     "fused_join_digest": "src/repro/kernels/delta_join.py:194",
     "scatter_join": "src/repro/kernels/delta_join.py:278",
     "chunk_digest": "src/repro/kernels/delta_join.py:311",
+    "flash_attention": "src/repro/kernels/flash_attention.py:119",
+    "flash_decode": "src/repro/kernels/flash_attention.py:206",
 }
 SOURCE = "src/repro_torch/kernels/csrc/delta_join.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+# published dense peaks of one H100 SXM: f32 on the CUDA cores (the flash
+# kernels' route in every dtype), bf16 / f16 on the tensor cores
+F32_FLOPS = 67e12
+TYPE_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
+ATTN_RTOL = ATTN_ATOL = 2e-5     # f32 flash parity, the JAX package's bar
+ULP = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}   # at 1.0
+SERVE = (                        # arch, requests, prompt tokens, tokens out
+    ("qwen1.5-0.5b", 4, 1000, 32),
+    ("qwen2-1.5b", 2, 1000, 16),
+)
+# served bf16 logits against the plain path's: the kernels keep the
+# softmax probabilities in f32 where the plain path rounds them to bf16,
+# so the two differ by bf16 rounding carried through every layer
+SERVE_LOGIT_TOL = 0.05           # of max|logits|
+F32_DEPTH = 2                    # layers of the f32 full-width check
+F32_RTOL = F32_ATOL = 1e-3
 
 
 def log(*parts) -> None:
@@ -107,8 +149,13 @@ def build() -> None:
         report = _build.finish(proc)
         regs = [ln.strip() for ln in report.splitlines()
                 if "registers" in ln]
+        spills = [ln.strip() for ln in report.splitlines()
+                  if "spill" in ln and not ln.strip().startswith(
+                      "0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+                      "spill loads")]
         log(f"built {name}: {len(regs)} kernels; " + "; ".join(
-            sorted(set(r.split("Used ")[-1] for r in regs))))
+            sorted(set(r.split("Used ")[-1] for r in regs)))
+            + f"; spills: {spills or 'none'}")
         _build.library(name)
     log(f"build_s={time.perf_counter() - t0:.3f}")
 
@@ -304,7 +351,200 @@ def kernel_parity(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 3. Main path
+# 2b. Flash attention parity and timing
+# ---------------------------------------------------------------------------
+
+# tag, b, h, kv, s, hd, options, timed: the served prefill shapes, gemma2's
+# long-window shape, and the small shapes of the JAX package's flash tests
+PREFILL_CHECKS = [
+    ("qwen1.5-0.5b", 4, 16, 16, 1000, 64, {}, True),
+    ("qwen2-1.5b", 2, 12, 2, 1000, 128, {}, True),
+    ("gemma2-4096", 1, 32, 16, 4096, 128,
+     {"window": 4096, "softcap": 50.0, "scale": 144.0 ** -0.5}, True),
+] + [(f"small-{b}x{h}x{kv}x{s}x{hd}", b, h, kv, s, hd, opts, False)
+     for b, h, kv, s, hd in ((1, 4, 4, 256, 64), (2, 8, 2, 256, 64),
+                             (1, 4, 1, 512, 128), (1, 2, 2, 128, 32))
+     for opts in ({}, {"window": 48}, {"softcap": 30.0}, {"scale": 0.0825})]
+# tag, b, h, kv, C, hd, tokens written, options, rows with no valid slot,
+# timed: the served caches midway through decode, then the edge cases
+DECODE_CHECKS = [
+    ("qwen1.5-0.5b", 4, 16, 16, 1032, 64, 1016, {}, (), True),
+    ("qwen2-1.5b", 2, 12, 2, 1016, 128, 1008, {}, (), True),
+    ("empty-slots", 2, 8, 2, 256, 64, 100, {}, (), False),
+    ("wrapped-ring-window", 1, 4, 2, 128, 64, 300, {"window": 128}, (),
+     False),
+    ("no-valid-row", 3, 4, 2, 96, 128, 50,
+     {"window": 16, "softcap": 30.0, "scale": 0.0825}, (1,), False),
+]
+
+
+def _dt(dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+def _attention_err(got, want, what) -> float:
+    """max|got - want|; raises beyond rtol = atol = 2e-5 in f32, or one
+    unit in the last place of the output dtype at max|want|."""
+    import torch
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} "
+                             f"!= {want.dtype} {tuple(want.shape)}")
+    err = float((got.float() - want.float()).abs().max())
+    if got.dtype == torch.float32:
+        ok = bool(torch.isclose(got, want, rtol=ATTN_RTOL,
+                                atol=ATTN_ATOL).all())
+        bar = f"rtol=atol={ATTN_RTOL}"
+    else:
+        tol = ULP[_dt(got.dtype)] * float(want.float().abs().max())
+        ok, bar = err <= tol, f"atol={tol:.3g} (1 ulp at max|out|)"
+    if not ok:
+        raise AssertionError(f"{what}: kernel differs from plain version "
+                             f"by {err} ({bar})")
+    return err
+
+
+def _bound(flops, nbytes, dtype) -> dict:
+    """Least time of the work on this card: the larger of the operations
+    over the peak rate of their type and the bytes over the memory rate;
+    ``route_bound_ms`` takes the f32 CUDA-core rate the kernels use."""
+    ops_ms = flops / TYPE_FLOPS[_dt(dtype)] * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+            "route_bound_ms": max(flops / F32_FLOPS * 1e3, bytes_ms),
+            "flops": flops, "bytes": nbytes}
+
+
+def _ring(b, kv, C, hd, filled, dtype, dev, gen, empty_rows=()):
+    """A ring cache after ``filled`` tokens (token t in slot t % C, the
+    latest token of each slot kept); rows in ``empty_rows`` hold none."""
+    import torch
+    k = torch.zeros((b, kv, C, hd), device=dev, dtype=dtype)
+    v = torch.zeros_like(k)
+    pos = np.full((b, C), -1, np.int32)
+    used = np.arange(min(filled, C))
+    pos[:, used] = used + C * ((filled - 1 - used) // C)
+    pos[list(empty_rows)] = -1
+    k[:, :, used] = torch.randn((b, kv, used.size, hd), generator=gen,
+                                device=dev).to(dtype)
+    v[:, :, used] = torch.randn((b, kv, used.size, hd), generator=gen,
+                                device=dev).to(dtype)
+    return k, v, torch.from_numpy(pos).to(dev)
+
+
+def _prefill_check(tag, b, h, kv, s, hd, opts, timed, dtype, dev) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + s * h + hd)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+               for shape in ((b, h, s, hd), (b, kv, s, hd), (b, kv, s, hd)))
+    got = fa.flash_attention(q, k, v, **opts)
+    want = ref.attention_ref(q, k, v, **opts)
+    torch.cuda.synchronize()
+    rec = {"max_abs_err": _attention_err(got, want, f"flash_attention "
+                                         f"{tag} {_dt(dtype)}")}
+    del got, want
+    if not timed:
+        return rec
+    window = opts.get("window") or s
+    pairs = int(np.minimum(np.arange(1, s + 1), window).sum())
+    es = q.element_size()
+    rec.update(_bound(4 * hd * b * h * pairs,
+                      es * (2 * b * h * s * hd + 2 * b * kv * s * hd),
+                      dtype))
+    rec["ms"] = time_ms(lambda: fa.flash_attention(q, k, v, **opts))
+    rec["plain_ms"] = time_ms(lambda: ref.attention_ref(q, k, v, **opts))
+    rec["library_ms"] = None
+    if "softcap" not in opts and opts.get("window") is None:
+        rec["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True,
+            scale=opts.get("scale")))
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _decode_check(tag, b, h, kv, C, hd, filled, opts, empty, timed, dtype,
+                  dev) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + C + filled)
+    k, v, kpos = _ring(b, kv, C, hd, filled, dtype, dev, gen, empty)
+    q = torch.randn((b, h, 1, hd), generator=gen, device=dev).to(dtype)
+    qpos = torch.full((b, 1), filled, dtype=torch.int32, device=dev)
+    got = fa.flash_decode(q, k, v, qpos, kpos, **opts)
+    want = ref.decode_ref(q, k, v, qpos, kpos, **opts)
+    torch.cuda.synchronize()
+    rec = {"max_abs_err": _attention_err(got, want, f"flash_decode {tag} "
+                                         f"{_dt(dtype)}")}
+    for r in empty:
+        if bool(got[r].any()):
+            raise AssertionError(f"flash_decode {tag}: a row with no "
+                                 "valid slot is not exactly 0")
+    if not timed:
+        return rec
+    valid = (kpos >= 0) & (kpos <= qpos)
+    if opts.get("window") is not None:
+        valid &= (qpos - kpos) < opts["window"]
+    n_valid = int(valid.sum())          # (row, slot) pairs the step needs
+    es = q.element_size()
+    rec.update(_bound(4 * hd * h * n_valid,
+                      2 * n_valid * kv * hd * es + 4 * b * C
+                      + 2 * b * h * hd * es + 4 * b, dtype))
+    rec["ms"] = time_ms(lambda: fa.flash_decode(q, k, v, qpos, kpos,
+                                                **opts))
+    rec["plain_ms"] = time_ms(lambda: ref.decode_ref(q, k, v, qpos, kpos,
+                                                     **opts))
+    mask = valid[:, None, None, :]
+    rec["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True, scale=opts.get("scale")))
+    return rec
+
+
+def flash_parity(dev) -> dict:
+    """Both flash kernels against their plain versions in f32, bf16 and
+    f16; returns per-kernel ``max_abs_err`` over all checks and the times
+    and bound at the served qwen1.5-0.5b shape in bf16 (the main path's
+    dtype)."""
+    import torch
+    results = {"flash_attention": {"max_abs_err": 0.0},
+               "flash_decode": {"max_abs_err": 0.0}}
+    runs = ([("flash_attention", c, _prefill_check) for c in PREFILL_CHECKS]
+            + [("flash_decode", c, _decode_check) for c in DECODE_CHECKS])
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        t0 = time.perf_counter()
+        for name, case, check in runs:
+            rec = check(*case, dtype, dev)
+            agg = results[name]
+            agg["max_abs_err"] = max(agg["max_abs_err"],
+                                     rec.pop("max_abs_err"))
+            if "ms" not in rec:
+                continue
+            lib = rec["library_ms"]
+            log(f"kernel {name} {case[0]} {_dt(dtype)}: ms={rec['ms']:.4f} "
+                f"plain_ms={rec['plain_ms']:.4f} library_ms="
+                + ("null" if lib is None else f"{lib:.4f}")
+                + f" bound_ms={rec['bound_ms']:.5f} ({rec['bound_by']}) "
+                f"route_bound_ms={rec['route_bound_ms']:.5f} "
+                f"flops={rec['flops']} bytes={rec['bytes']}")
+            if case[0] == "qwen1.5-0.5b" and dtype == torch.bfloat16:
+                agg.update(rec)
+        log(f"flash parity {_dt(dtype)} ok: {len(PREFILL_CHECKS)} prefill "
+            f"and {len(DECODE_CHECKS)} decode checks "
+            f"({time.perf_counter() - t0:.3f} s)")
+    for name, rec in results.items():
+        log(f"kernel {name}: max_abs_err={rec['max_abs_err']} over all "
+            "checks")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# 3. Store path
 # ---------------------------------------------------------------------------
 
 class Replay:
@@ -344,7 +584,7 @@ def converged(reps) -> bool:
 
 def main_path(dev, tensors, chunk=CHUNK, write_rounds=WRITE_ROUNDS,
               rows_per_tensor=ROWS_PER_TENSOR):
-    """Drive the port's main path; returns (replicas, replay, timings)."""
+    """Drive the port's store path; returns (replicas, replay, timings)."""
     import torch
     from repro_torch.core.propagation import StoreReplica, make_policy
     from repro_torch.core.sim import NetConfig, Simulator
@@ -532,6 +772,191 @@ def topk_check(store, dev) -> None:
 
 
 # ---------------------------------------------------------------------------
+# 6. Serve path
+# ---------------------------------------------------------------------------
+
+def _logit_checks(served, plain, tol_rel, what) -> dict:
+    """Every step's served logits against the plain path's (teacher
+    forced on the served tokens) within ``tol_rel`` of max|logits|, and
+    the served greedy token equal to the plain argmax wherever the plain
+    top-1/top-2 margin exceeds twice that row's observed gap."""
+    import torch
+    worst = mean = 0.0
+    checked = total = 0
+    for step, (s_lg, p_lg) in enumerate(zip(served.logits, plain.logits)):
+        if not bool(torch.isfinite(s_lg).all()):
+            raise AssertionError(f"{what}: step {step} logits not finite")
+        gap = (s_lg - p_lg).abs()
+        tol = tol_rel * float(p_lg.abs().max())
+        if float(gap.max()) > tol:
+            raise AssertionError(f"{what}: step {step} logits differ by "
+                                 f"{float(gap.max())} > {tol}")
+        worst = max(worst, float(gap.max()) / float(p_lg.abs().max()))
+        mean = max(mean, float(gap.mean()))
+        top2 = p_lg.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * gap.amax(dim=-1)
+        agree = torch.from_numpy(served.tokens[:, step]).to(p_lg.device) \
+            == p_lg.argmax(dim=-1)
+        if not bool(agree[sure].all()):
+            raise AssertionError(f"{what}: step {step} greedy token differs "
+                                 "where the plain margin is decisive")
+        checked += int(sure.sum())
+        total += sure.numel()
+    log(f"{what}: logits within {tol_rel} of max|logits| at every step "
+        f"(worst {worst:.3e} of max, largest mean gap {mean:.3e}); greedy "
+        f"tokens equal at {checked}/{total} decisive positions")
+    return {"worst_rel_gap": worst, "decisive": checked, "positions": total}
+
+
+def decode_breakdown(cfg, params, prompt, gen, steps=4) -> dict:
+    """Where a decode step's time goes: host clock per step (ending in a
+    synchronise), the host time to enqueue it, and — from a
+    ``torch.profiler`` trace of ``steps`` steps — the card's busy time
+    (sum of kernel durations) and the flash_decode kernel's part of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import decode_step, prefill
+
+    b = next(iter(prompt.values())).shape[0]
+    n = sum(v.shape[1] for v in prompt.values())
+    logits, caches = prefill(cfg, params, prompt, max_len=n + gen)
+    tok = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
+    torch.cuda.synchronize()
+    enqueue, wall = [], []
+    trace = ROOT / "build" / f"decode_trace_{cfg.name}.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for k in range(steps):
+            pos = torch.full((b, 1), n + k, dtype=torch.int32,
+                             device=tok.device)
+            t0 = time.perf_counter()
+            logits, caches = decode_step(cfg, params, tok, pos, caches)
+            enqueue.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
+    prof.export_chrome_trace(str(trace))
+    kernels = [e for e in json.loads(trace.read_text())["traceEvents"]
+               if e.get("cat") == "kernel"]
+    busy_us = sum(e["dur"] for e in kernels)
+    flash_us = sum(e["dur"] for e in kernels
+                   if "flash_decode_kernel" in e["name"])
+    rec = {"step_ms": 1e3 * float(np.median(wall)),
+           "enqueue_ms": 1e3 * float(np.median(enqueue)),
+           "kernels_per_step": len(kernels) / steps,
+           "device_busy_ms": busy_us / 1e3 / steps,
+           "flash_decode_ms": flash_us / 1e3 / steps}
+    rec["busy_share"] = (rec["device_busy_ms"] / rec["step_ms"]
+                         if kernels else None)
+    log(f"decode step {cfg.name} (profiled, {steps} steps): "
+        + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+                   for k, v in rec.items())
+        + ("" if kernels else " — the profiler saw no device time: busy "
+           "share not measured"))
+    return rec
+
+
+def serve_path(dev) -> dict:
+    """Serve both models through ``repro_torch.launch.serve``'s model
+    part; returns the flash launches of the served runs and timings."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import generate, make_prompt
+    from repro_torch.models import init_model
+
+    launches = {"flash_attention": 0, "flash_decode": 0}
+    out = {}
+    for arch, b, prompt_len, gen in SERVE:
+        cfg = dataclasses.replace(get_config(arch), attn_impl="chunked")
+        t0 = time.perf_counter()
+        params = init_model(cfg, SEED, device=dev)
+        n_params = sum(t.numel() for t in _leaves(params))
+        prompt, _ = make_prompt(cfg, b, prompt_len, SEED, dev)
+        generate(cfg, params, prompt, 2)          # warm-up, not counted
+        torch.cuda.synchronize()
+        log(f"serve {arch}: {n_params} parameters ({cfg.dtype}) made in "
+            f"{time.perf_counter() - t0:.3f} s")
+
+        fa.reset_launches()
+        run = generate(cfg, params, prompt, gen, keep_logits=True)
+        got = dict(fa.launches)
+        L = cfg.n_layers
+        want = {"flash_attention": L, "flash_decode": L * (gen - 1)}
+        if got != want:
+            raise AssertionError(f"serve {arch}: launches {got}, expected "
+                                 f"{want}")
+        for k in launches:
+            launches[k] += got[k]
+        if run.tokens.shape != (b, gen) or not (
+                (run.tokens >= 0) & (run.tokens < cfg.vocab)).all():
+            raise AssertionError(f"serve {arch}: bad tokens {run.tokens}")
+        toks = b * (gen - 1)
+        rec = {"prefill_s": run.prefill_s, "decode_s": run.decode_s,
+               "prefill_tok_per_s": b * prompt_len / run.prefill_s,
+               "decode_tok_per_s": toks / run.decode_s, "launches": got}
+        log(f"serve {arch} (chunked, card): batch={b} prompt={prompt_len} "
+            f"gen={gen} prefill_s={run.prefill_s:.4f} "
+            f"decode_s={run.decode_s:.4f} "
+            f"prefill_tok_per_s={rec['prefill_tok_per_s']:.1f} "
+            f"decode_tok_per_s={rec['decode_tok_per_s']:.1f} "
+            f"launches={got}; req 0: {run.tokens[0].tolist()}")
+
+        plain_cfg = dataclasses.replace(cfg, attn_impl="naive")
+        plain = generate(plain_cfg, params, prompt, gen, keep_logits=True,
+                         forced=torch.from_numpy(run.tokens).to(dev))
+        rec["plain_prefill_s"] = plain.prefill_s
+        rec["plain_decode_s"] = plain.decode_s
+        log(f"serve {arch} (naive, card, teacher-forced): "
+            f"prefill_s={plain.prefill_s:.4f} decode_s={plain.decode_s:.4f}")
+        rec.update(_logit_checks(run, plain, SERVE_LOGIT_TOL,
+                                 f"serve {arch} chunked vs naive"))
+        rec["decode_step"] = decode_breakdown(cfg, params, prompt, gen)
+        out[arch] = rec
+        del params, run, plain
+        torch.cuda.empty_cache()
+
+    # f32 at full width, 2 layers deep: the served path against the plain
+    # one at rtol = atol = 1e-3 (TF32 is off)
+    arch, b, prompt_len, gen = SERVE[0]
+    cfg = dataclasses.replace(get_config(arch), n_layers=F32_DEPTH,
+                              dtype="float32", attn_impl="chunked")
+    params = init_model(cfg, SEED + 1, device=dev)
+    prompt, _ = make_prompt(cfg, b, prompt_len, SEED + 1, dev)
+    run = generate(cfg, params, prompt, 8, keep_logits=True)
+    plain = generate(dataclasses.replace(cfg, attn_impl="naive"), params,
+                     prompt, 8, keep_logits=True,
+                     forced=torch.from_numpy(run.tokens).to(dev))
+    worst = 0.0
+    for step, (s_lg, p_lg) in enumerate(zip(run.logits, plain.logits)):
+        if not bool(torch.isclose(s_lg, p_lg, rtol=F32_RTOL,
+                                  atol=F32_ATOL).all()):
+            raise AssertionError(f"f32 {arch} depth {F32_DEPTH}: step "
+                                 f"{step} beyond rtol=atol={F32_RTOL}")
+        worst = max(worst, float((s_lg - p_lg).abs().max()))
+    if not np.array_equal(run.tokens, plain.tokens):
+        raise AssertionError(f"f32 {arch}: greedy tokens differ")
+    log(f"serve {arch} f32 depth {F32_DEPTH}: chunked equals naive within "
+        f"rtol=atol={F32_RTOL} at all 8 steps (max gap {worst:.3e}), "
+        "same tokens")
+    out["f32_depth2_max_gap"] = worst
+    return {"launches": launches, "timings": out}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -540,11 +965,15 @@ def main() -> int:
         return 2
     from repro_torch.kernels import delta_join as dj
 
+    # full f32 products for every plain version held against a kernel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = "cuda"
     card = card_line()
     log(card)
     build()
     parity = kernel_parity(torch.device(dev))
+    parity.update(flash_parity(torch.device(dev)))
 
     tensors = qwen_tensors()
     dj.reset_launches()
@@ -554,26 +983,35 @@ def main() -> int:
     joined = a.join(b)                  # state-based full-state merge
     torch.cuda.synchronize()
     launches = dict(dj.launches)
-    log(f"main path: {time.perf_counter() - t0:.3f} s, launches={launches}")
+    log(f"store path: {time.perf_counter() - t0:.3f} s, "
+        f"launches={launches}")
     for r in reps:
         check_against_replay(r.store, replay, dev, f"replica {r.id}")
     check_against_replay(joined, replay, dev, "a ⊔ b")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
     log("replicas equal each other and the numpy replay")
 
     ingest_scaling(a, [n for n, _ in tensors], dev)
     topk_check(a, dev)
+    del reps, a, b, joined
+    torch.cuda.empty_cache()
+
+    served = serve_path(dev)
+    launches.update(served["launches"])
+    timings["serve"] = served["timings"]
+    missing = [k for k in TPU_KERNEL if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on their path: "
+                             f"{missing}")
 
     kernels = [{
-        "name": name, "route": "cuda", "source": SOURCE,
+        "name": name, "route": "cuda",
+        "source": FLASH_SOURCE if name.startswith("flash") else SOURCE,
         "replaces": TPU_KERNEL[name], "launches": launches[name],
         "max_abs_err": parity[name]["max_abs_err"],
         "ms": parity[name]["ms"], "plain_ms": parity[name]["plain_ms"],
-        "bound_ms": parity[name]["bound_ms"], "bound_by": "bytes",
-        "library_ms": None} for name in TPU_KERNEL]
+        "bound_ms": parity[name]["bound_ms"],
+        "bound_by": parity[name].get("bound_by", "bytes"),
+        "library_ms": parity[name].get("library_ms")} for name in TPU_KERNEL]
     log(json.dumps({"timings": timings}))
     log(card)
     log(json.dumps({"kernels": kernels}))

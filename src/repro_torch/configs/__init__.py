@@ -1,0 +1,50 @@
+"""Architecture registry: ``--arch <id>`` → ModelConfig.
+
+The ids are the JAX package's. Each ported module defines the exact
+published ``CONFIG`` plus a ``REDUCED`` config of the same family (same
+layer-kind pattern, same structural features, tiny dims) for CPU tests,
+with the same values as the JAX package's. An id whose config is not
+ported yet raises ``NotImplementedError`` naming the slice that brings it.
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from ..models.config import ModelConfig
+
+_MODULES: Dict[str, str] = {
+    "qwen2-1.5b": "qwen2_1_5b",
+    "qwen1.5-0.5b": "qwen1_5_0_5b",
+}
+
+# ids of the JAX package whose configs wait for a later slice
+_LATER: Dict[str, str] = {
+    "mixtral-8x22b": "slice E, MoE family",
+    "deepseek-v2-236b": "slice E, MoE and MLA families",
+    "phi-3-vision-4.2b": "slice E, remaining dense configs",
+    "stablelm-1.6b": "slice E, remaining dense configs",
+    "gemma2-27b": "slice E, remaining dense configs",
+    "mamba2-130m": "slice E, SSM family",
+    "musicgen-large": "slice E, remaining dense configs",
+    "jamba-v0.1-52b": "slice E, SSM and MoE families",
+}
+
+ARCH_IDS: List[str] = ["mixtral-8x22b", "deepseek-v2-236b",
+                       "phi-3-vision-4.2b", "qwen2-1.5b", "stablelm-1.6b",
+                       "qwen1.5-0.5b", "gemma2-27b", "mamba2-130m",
+                       "musicgen-large", "jamba-v0.1-52b"]
+
+
+def get_config(arch_id: str, reduced: bool = False) -> ModelConfig:
+    if arch_id in _LATER:
+        raise NotImplementedError(f"arch {arch_id!r} is not ported yet "
+                                  f"({_LATER[arch_id]})")
+    if arch_id not in _MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
+    mod = importlib.import_module(f"{__name__}.{_MODULES[arch_id]}")
+    return mod.REDUCED if reduced else mod.CONFIG
+
+
+__all__ = ["ARCH_IDS", "get_config"]

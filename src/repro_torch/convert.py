@@ -1,4 +1,12 @@
-"""Carry tensor-store state across as plain numpy data.
+"""Carry state across as plain numpy data: tensor stores, model
+parameters and KV caches.
+
+Model parameters and caches are pytrees (nested dicts and lists) of numpy
+arrays with the JAX package's layout — ``init_model``'s params (layer
+groups stacked along a leading ``layers`` axis) and ``prefill``'s caches
+(per group, per layer of the super-block, ``{"k", "v", "pos", "idx"}``
+stacked the same way). The port's trees have the same nesting and
+shapes, leaf for leaf.
 
 The plain form of a store is ``(entries, life)``:
 
@@ -16,7 +24,7 @@ dtype is read as bfloat16).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, Mapping, Tuple
+from typing import Any, Callable, Dict, Iterable, Mapping, Tuple
 
 import numpy as np
 
@@ -70,3 +78,31 @@ def store_to_numpy(store: LatticeStore) -> Tuple[dict, list]:
                                  None)
         entries[key] = (tensors, val.lamport)
     return entries, list(store.life)
+
+
+def _tree_map(fn: Callable, tree: Any) -> Any:
+    if isinstance(tree, Mapping):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def params_from_numpy(tree: Any, *, device="cuda") -> Any:
+    """The port's model parameters from a numpy pytree of the JAX
+    package's ``init_model`` params (bf16 leaves as ``ml_dtypes`` or
+    2-byte voids), on ``device``. Leaves are copied, never aliased."""
+    return _tree_map(lambda a: to_torch(np.array(_host(a)), device), tree)
+
+
+def caches_from_numpy(tree: Any, *, device="cuda") -> Any:
+    """The port's KV caches from a numpy pytree of the JAX package's
+    caches, on ``device``. Leaves are copied: decode steps write the
+    port's caches in place."""
+    return params_from_numpy(tree, device=device)
+
+
+def tree_to_numpy(tree: Any) -> Any:
+    """Parameters or caches of the port as a numpy pytree (bf16 as
+    ``V2``), the inverse of :func:`params_from_numpy`."""
+    return _tree_map(to_numpy, tree)

@@ -26,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 P = ctypes.c_void_p
 I64 = ctypes.c_longlong
 I32 = ctypes.c_int
+F32 = ctypes.c_float
 
 # C entry points of each source: name -> argtypes (restype is int, the
 # launch's cudaGetLastError())
@@ -37,6 +38,17 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "rt_chunk_digest": (P, P, P, I64, I64, I32, I32, P),
         "rt_scatter_join": (P, P, P, P, P, P, P, P, P, I64, I64, I32, I32,
                             P),
+    },
+    "flash_attention": {
+        # q, k, v, o; B, H, KV, SQ, SK, hd; (batch, head, seq) strides of
+        # q, k, v, o; scale, window, softcap, dtype, stream
+        "rt_flash_attention": (P, P, P, P) + (I32,) * 6 + (I64,) * 12
+        + (F32, I32, F32, I32, P),
+        # q, k, v, q_pos, k_pos, o; B, H, KV, C, hd; strides of q (2),
+        # k (3), v (3), q_pos (1), k_pos (2), o (2); scale, window,
+        # softcap, dtype, stream
+        "rt_flash_decode": (P,) * 6 + (I32,) * 5 + (I64,) * 13
+        + (F32, I32, F32, I32, P),
     },
 }
 

@@ -1,7 +1,8 @@
 """Public kernel wrappers with launch and transfer accounting.
 
-Each wrapper stages its operands onto one device, records the launch and
-calls :mod:`.delta_join`, which picks the route from that device: the
+Each wrapper records the launch and calls :mod:`.delta_join` or
+:mod:`.flash_attention` (the δ-CRDT wrappers first stage their operands
+onto one device), which pick the route from the tensors' device: the
 card launches the hand-written kernel (or raises), the CPU runs the
 plain version. Nothing here asks whether a card exists.
 
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from . import delta_join as _dj
+from . import flash_attention as _fa
 from . import ref
 from ..dtypes import common_device, to_torch
 
@@ -110,6 +112,30 @@ def _stage(name: str, operands: Sequence) -> Tuple[torch.Tensor, ...]:
 
 
 # ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def flash_attention(q, k, v, *, scale: Optional[float] = None,
+                    window: Optional[int] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
+    """Causal flash attention. q [b,h,s,hd]; k,v [b,kv,s,hd] (views with
+    any batch/head/seq strides)."""
+    record_launch("flash_attention", q, k, v)
+    return _fa.flash_attention(q, k, v, scale=scale, window=window,
+                               softcap=softcap)
+
+
+def flash_decode(q, k, v, q_pos, k_pos, *, scale: Optional[float] = None,
+                 window: Optional[int] = None,
+                 softcap: Optional[float] = None) -> torch.Tensor:
+    """One-token decode against a (ring) KV cache with slot positions.
+    q [b,h,1,hd]; k,v [b,kv,C,hd]; q_pos [b,1], k_pos [b,C] int32."""
+    record_launch("flash_decode", q, k, v, q_pos, k_pos)
+    return _fa.flash_decode(q, k, v, q_pos, k_pos, scale=scale,
+                            window=window, softcap=softcap)
+
+
+# ---------------------------------------------------------------------------
 # δ-CRDT joins and digests
 # ---------------------------------------------------------------------------
 
@@ -151,6 +177,8 @@ def scatter_join(vals, vers, maxabs, sumsq, idx, d_vals, d_vers):
 
 
 # re-export the plain versions
+attention_ref = ref.attention_ref
+decode_ref = ref.decode_ref
 delta_join_ref = ref.delta_join_ref
 batched_delta_join_ref = ref.batched_delta_join_ref
 chunk_digest_ref = ref.chunk_digest_ref

@@ -1,0 +1,270 @@
+"""Decoder stack over ``LayerSpec`` layouts: the serving path.
+
+* blocks: pre-norm attention + dense MLP (+ gemma2-style post-norms),
+  assembled per the config's layer layout;
+* layer parameters are stacked per group of ``layout_groups`` with a
+  leading ``layers`` axis, exactly as the JAX package stacks them for its
+  ``lax.scan``; the port runs each group as a Python loop over its
+  repeats, on views of the stacked tensors;
+* entry points: ``prefill`` (prompt → last-position logits and caches)
+  and ``decode_step`` (one token against the caches).
+
+``input_mode`` selects token embedding, raw embeddings (musicgen frames),
+or token+prefix embeddings (phi-3-vision patches), as in the JAX package.
+MLA and SSM mixers and MoE MLPs come with their model families in a later
+slice; so do training and its loss.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from . import attention as attn_mod
+from .config import LayerSpec, ModelConfig, layout_groups
+from .layers import (apply_mlp, apply_norm, embed_tokens, init_embedding,
+                     init_mlp, init_norm, lm_logits, sinusoidal_positions)
+
+_LATER = "is not ported yet (slice E, its model family)"
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def _init_layer(cfg: ModelConfig, spec: LayerSpec, gen: torch.Generator,
+                dtype) -> Dict[str, Any]:
+    dev = gen.device
+    p: Dict[str, Any] = {"norm1": init_norm(cfg, cfg.d_model, dev)}
+    if spec.kind != "attn":
+        raise NotImplementedError(f"{spec.kind!r} mixer {_LATER}")
+    p["mix"] = attn_mod.init_attention(cfg, gen, dtype)
+    if spec.mlp == "dense":
+        p["norm2"] = init_norm(cfg, cfg.d_model, dev)
+        p["mlp"] = init_mlp(cfg, gen, cfg.d_model, cfg.d_ff, dtype)
+    elif spec.mlp == "moe":
+        raise NotImplementedError(f"MoE MLP {_LATER}")
+    elif spec.mlp != "none":
+        raise ValueError(spec.mlp)
+    if cfg.post_norms:
+        p["post_attn"] = init_norm(cfg, cfg.d_model, dev)
+        p["post_mlp"] = init_norm(cfg, cfg.d_model, dev)
+    return p
+
+
+def _stack(trees: List[Any]) -> Any:
+    """Stack equal-shaped trees (dicts of tensors) along a new axis 0."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _layer(tree: Any, r: int) -> Any:
+    """Layer ``r``'s views of a stacked tree."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, r) for k, v in tree.items()}
+    return tree[r]
+
+
+def init_model(cfg: ModelConfig, seed: int = 0, *, device="cuda"
+               ) -> Dict[str, Any]:
+    """Random parameters from ``seed`` (an explicit ``torch.Generator`` on
+    ``device``), laid out as the JAX package's ``init_model``: ``embed``,
+    ``final_norm`` and ``groups``, a list (one per layout group) of lists
+    (one per layer of the group's super-block) of parameter dicts stacked
+    over the group's repeats."""
+    dtype = compute_dtype(cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params: Dict[str, Any] = {
+        "embed": init_embedding(cfg, gen, dtype),
+        "final_norm": init_norm(cfg, cfg.d_model, gen.device),
+        "groups": [],
+    }
+    for block, repeats in layout_groups(cfg.default_layout()):
+        layers = [[_init_layer(cfg, spec, gen, dtype) for spec in block]
+                  for _ in range(repeats)]
+        params["groups"].append([_stack([layers[r][li]
+                                          for r in range(repeats)])
+                                 for li in range(len(block))])
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Block application
+# ---------------------------------------------------------------------------
+
+def _apply_block(cfg: ModelConfig, spec: LayerSpec, p: Dict,
+                 x: torch.Tensor, positions: torch.Tensor, mode: str,
+                 cache: Optional[Dict], cache_capacity: Optional[int]
+                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """One decoder block. Returns (x, new_cache)."""
+    if spec.kind != "attn":
+        raise NotImplementedError(f"{spec.kind!r} mixer {_LATER}")
+    h = apply_norm(p["norm1"], x, cfg.norm)
+    if mode == "decode":
+        y, new_cache = attn_mod.attend_decode(p["mix"], cfg, spec, h,
+                                              positions, cache)
+    else:
+        y, new_cache = attn_mod.attend_full(p["mix"], cfg, spec, h,
+                                            positions,
+                                            make_cache=cache_capacity)
+    if cfg.post_norms:
+        y = apply_norm(p["post_attn"], y, cfg.norm)
+    x = x + y
+
+    if spec.mlp == "none":
+        return x, new_cache
+    if spec.mlp != "dense":
+        raise NotImplementedError(f"{spec.mlp!r} MLP {_LATER}")
+    h = apply_norm(p["norm2"], x, cfg.norm)
+    y = apply_mlp(p["mlp"], h, cfg.act)
+    if cfg.post_norms:
+        y = apply_norm(p["post_mlp"], y, cfg.norm)
+    return x + y, new_cache
+
+
+def _cache_capacity(cfg: ModelConfig, spec: LayerSpec, max_len: int) -> int:
+    if spec.kind == "ssm":
+        return 0  # SSM caches are fixed-shape; capacity unused
+    if spec.window is not None:
+        return min(spec.window, max_len)
+    return max_len
+
+
+# ---------------------------------------------------------------------------
+# Stack runner (a loop over the stacked layer groups)
+# ---------------------------------------------------------------------------
+
+def _run_stack(cfg: ModelConfig, params: Dict, x: torch.Tensor,
+               positions: torch.Tensor, mode: str,
+               caches: Optional[List] = None,
+               max_len: Optional[int] = None
+               ) -> Tuple[torch.Tensor, List]:
+    """``mode`` "prefill" builds the caches (stacked per group as the JAX
+    scan stacks them); "decode" updates ``caches`` in place and returns
+    them."""
+    if mode not in ("prefill", "decode"):
+        raise ValueError(f"mode {mode!r}: the port serves prefill and decode")
+    new_caches: List[Any] = []
+    for gi, (block, repeats) in enumerate(layout_groups(
+            cfg.default_layout())):
+        stacked = params["groups"][gi]
+        group_cache = caches[gi] if caches is not None else None
+        made: List[List[Dict]] = [[] for _ in block]
+        for r in range(repeats):
+            for li, spec in enumerate(block):
+                c = (_layer(group_cache[li], r) if group_cache is not None
+                     else None)
+                cap = (_cache_capacity(cfg, spec, max_len)
+                       if mode == "prefill" else None)
+                x, nc = _apply_block(cfg, spec, _layer(stacked[li], r), x,
+                                     positions, mode, c, cap)
+                made[li].append(nc)
+        new_caches.append([_stack(m) for m in made] if mode == "prefill"
+                          else group_cache)
+    return x, new_caches
+
+
+# ---------------------------------------------------------------------------
+# Inputs → hidden states
+# ---------------------------------------------------------------------------
+
+def _arange_positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, dtype=torch.int32, device=device)[None, :] \
+        .expand(b, s)
+
+
+def _inputs_to_hidden(cfg: ModelConfig, params: Dict, batch: Dict
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    dtype = compute_dtype(cfg)
+    if cfg.input_mode == "embeds":
+        x = batch["embeds"].to(dtype)
+        b, s = x.shape[0], x.shape[1]
+        positions = batch.get("positions")
+        if positions is None:
+            positions = _arange_positions(b, s, x.device)
+    elif cfg.input_mode == "tokens+prefix" and "prefix_embeds" in batch:
+        prefix = batch["prefix_embeds"].to(dtype)
+        tok = embed_tokens(params["embed"], cfg, batch["tokens"])
+        x = torch.cat([prefix, tok], dim=1)
+        b, s = x.shape[0], x.shape[1]
+        positions = _arange_positions(b, s, x.device)
+    else:
+        x = embed_tokens(params["embed"], cfg, batch["tokens"])
+        b, s = x.shape[0], x.shape[1]
+        positions = batch.get("positions")
+        if positions is None:
+            positions = _arange_positions(b, s, x.device)
+    if cfg.pos == "sinusoidal":
+        x = x + sinusoidal_positions(positions, cfg.d_model, x.dtype)
+    return x, positions
+
+
+# ---------------------------------------------------------------------------
+# Public entry points
+# ---------------------------------------------------------------------------
+
+def prefill(cfg: ModelConfig, params: Dict, batch: Dict, max_len: int
+            ) -> Tuple[torch.Tensor, List]:
+    """Run the prompt; returns (last-position logits [b, 1, vocab] f32,
+    caches)."""
+    x, positions = _inputs_to_hidden(cfg, params, batch)
+    x, caches = _run_stack(cfg, params, x, positions, "prefill",
+                           max_len=max_len)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    return lm_logits(params["embed"], cfg, x[:, -1:, :]), caches
+
+
+def decode_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+                pos: torch.Tensor, caches: List
+                ) -> Tuple[torch.Tensor, List]:
+    """One decode step: tokens [b,1] (or embeds [b,1,d]), pos [b,1].
+    The caches are updated in place (and returned)."""
+    if cfg.input_mode == "embeds":
+        batch = {"embeds": tokens, "positions": pos}
+    else:
+        batch = {"tokens": tokens, "positions": pos}
+    x, positions = _inputs_to_hidden(cfg, params, batch)
+    x, caches = _run_stack(cfg, params, x, positions, "decode",
+                           caches=caches)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    return lm_logits(params["embed"], cfg, x), caches
+
+
+def caches_max_len(caches: List) -> int:
+    best = 1
+    for group in caches:
+        if group is None:
+            continue
+        for c in group:
+            if c is not None and "k" in c:
+                best = max(best, c["k"].shape[2])   # [layers,b,C,kv,hd]
+    return best
+
+
+def init_caches(cfg: ModelConfig, params: Dict, b: int, max_len: int,
+                dtype=None) -> List:
+    """Fresh (empty) caches shaped like prefill's output, on the
+    parameters' device."""
+    dtype = dtype or compute_dtype(cfg)
+    device = params["embed"]["tok"].device
+    caches = []
+    for block, repeats in layout_groups(cfg.default_layout()):
+        sub = []
+        for spec in block:
+            if spec.kind != "attn":
+                raise NotImplementedError(f"{spec.kind!r} cache {_LATER}")
+            c = attn_mod.init_kv_cache(b, _cache_capacity(cfg, spec,
+                                                          max_len),
+                                       cfg.n_kv_heads,
+                                       cfg.resolved_head_dim(), dtype,
+                                       device)
+            sub.append({k: v[None].repeat((repeats,) + (1,) * v.dim())
+                        for k, v in c.items()})
+        caches.append(sub)
+    return caches

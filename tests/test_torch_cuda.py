@@ -2,13 +2,17 @@
 the card. Imports only torch and the port, so it runs where JAX is not
 installed: ``python -m pytest -q -m cuda tests/test_torch_cuda.py``
 (skips without a card). Values, versions and max|x| are held bit-exact;
-Σx² to rtol 1e-4 (the kernel sums in another order)."""
+Σx² to rtol 1e-4 (the kernel sums in another order). The flash kernels
+are held in f32 at rtol = atol = 2e-5 (TF32 off for the plain side), and
+in bf16 / f16 to one unit in the last place of the output dtype at
+max|out| (both sides compute in f32 and round once)."""
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import delta_join as dj
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 
 SUMSQ_RTOL = 1e-4
@@ -22,6 +26,8 @@ SHAPES = [(1, 1024), (777, 1024), (301, 100), (64, 7)]
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -127,3 +133,121 @@ def test_ops_stage_host_operands_and_count_them(card):
     assert diff == {"launches": 1, "h2d_bytes": 32, "d2h_bytes": 0}
     with pytest.raises(ValueError):
         dj.delta_join(av, avr.cpu(), bv, bvr)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention
+# ---------------------------------------------------------------------------
+
+# one unit in the last place at 1.0 (f32: the JAX package's 2e-5 bar)
+ULP = {torch.float32: None, torch.bfloat16: 2.0 ** -7,
+       torch.float16: 2.0 ** -10}
+
+
+def _assert_attention_close(got, want):
+    if ULP[got.dtype] is None:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        tol = ULP[got.dtype] * float(want.float().abs().max())
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=tol)
+
+
+def _randn(shape, dtype, dev, gen):
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+FLASH_CASES = [
+    # b, h, kv, s, hd, options
+    (1, 4, 4, 256, 64, {}),                                # MHA
+    (2, 8, 2, 256, 64, {"window": 48}),                    # GQA + window
+    (1, 4, 1, 512, 128, {"softcap": 30.0}),                # MQA + softcap
+    (1, 2, 2, 128, 32, {"scale": 0.0825}),
+    (2, 6, 2, 100, 16, {"window": 40, "softcap": 20.0}),   # ragged
+    (1, 2, 1, 130, 256, {}),                               # widest head
+    (1, 3, 3, 33, 8, {}),                                  # narrow head
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,kv,s,hd,opts", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(card, dtype, b, h, kv, s, hd,
+                                              opts):
+    g = torch.Generator(device=card).manual_seed(s * h + hd)
+    q = _randn((b, h, s, hd), dtype, card, g)
+    k = _randn((b, kv, s, hd), dtype, card, g)
+    v = _randn((b, kv, s, hd), dtype, card, g)
+    before = fa.launches["flash_attention"]
+    got = fa.flash_attention(q, k, v, **opts)
+    want = ref.attention_ref(q, k, v, **opts)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    _assert_attention_close(got, want)
+    assert fa.launches["flash_attention"] == before + 1
+
+
+def _ring(b, kv, C, hd, filled, dtype, dev, gen, empty_rows=()):
+    """A ring cache after ``filled`` tokens (token t in slot t % C, the
+    latest token of each slot kept); rows in ``empty_rows`` hold none."""
+    k = torch.zeros((b, kv, C, hd), device=dev, dtype=dtype)
+    v = torch.zeros_like(k)
+    pos = np.full((b, C), -1, np.int32)
+    used = np.arange(min(filled, C))
+    pos[:, used] = used + C * ((filled - 1 - used) // C)
+    pos[list(empty_rows)] = -1
+    k[:, :, used] = _randn((b, kv, used.size, hd), dtype, dev, gen)
+    v[:, :, used] = _randn((b, kv, used.size, hd), dtype, dev, gen)
+    return k, v, torch.from_numpy(pos).to(dev)
+
+
+DECODE_CASES = [
+    # b, h, kv, C, hd, filled, options, rows with no valid slot
+    (2, 4, 4, 256, 64, 256, {}, ()),                        # full cache
+    (2, 8, 2, 256, 64, 100, {}, ()),                        # empty slots
+    (1, 4, 1, 512, 128, 300, {"softcap": 30.0}, ()),
+    (1, 4, 2, 128, 64, 300, {"window": 128}, ()),           # wrapped ring
+    (2, 12, 2, 1032, 128, 1010, {"scale": 0.0825}, ()),     # ragged tiles
+    (3, 4, 2, 96, 256, 50, {"window": 16}, (1,)),           # no valid slot
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,kv,C,hd,filled,opts,empty", DECODE_CASES)
+def test_flash_decode_kernel_matches_plain(card, dtype, b, h, kv, C, hd,
+                                           filled, opts, empty):
+    g = torch.Generator(device=card).manual_seed(C + filled)
+    k, v, kpos = _ring(b, kv, C, hd, filled, dtype, card, g, empty)
+    q = _randn((b, h, 1, hd), dtype, card, g)
+    qpos = torch.full((b, 1), filled, dtype=torch.int32, device=card)
+    before = fa.launches["flash_decode"]
+    got = fa.flash_decode(q, k, v, qpos, kpos, **opts)
+    want = ref.decode_ref(q, k, v, qpos, kpos, **opts)
+    torch.cuda.synchronize()
+    _assert_attention_close(got, want)
+    for r in empty:
+        assert not got[r].any()        # exactly zero
+    assert fa.launches["flash_decode"] == before + 1
+
+
+@pytest.mark.cuda
+def test_flash_kernels_take_the_models_layouts(card):
+    """Strided [b, s, H, hd] / [b, C, KV, hd] views give the contiguous
+    call's result, returned in the caller's memory order."""
+    g = torch.Generator(device=card).manual_seed(9)
+    b, s, H, KV, hd = 2, 70, 6, 2, 64
+    q = _randn((b, s, H, hd), torch.bfloat16, card, g)
+    k = _randn((b, s, KV, hd), torch.bfloat16, card, g)
+    v = _randn((b, s, KV, hd), torch.bfloat16, card, g)
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    out = fa.flash_attention(*views)
+    assert out.transpose(1, 2).is_contiguous()
+    assert torch.equal(out, fa.flash_attention(
+        *[t.contiguous() for t in views]))
+    pos = torch.arange(s, dtype=torch.int32, device=card)[None].repeat(b, 1)
+    qpos = torch.full((b, 1), s - 1, dtype=torch.int32, device=card)
+    dec = fa.flash_decode(views[0][:, :, -1:], views[1], views[2], qpos, pos)
+    assert torch.equal(dec, fa.flash_decode(
+        views[0][:, :, -1:].contiguous(), views[1].contiguous(),
+        views[2].contiguous(), qpos, pos))
