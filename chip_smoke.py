@@ -20,10 +20,16 @@ NVIDIA card. Run from the root of a checkout:
    no tile divides), at 4,096 tokens with gemma2's window, softcap and
    query scale, and at small shapes with a window, a softcap and a
    scale; decode against the served caches, a ring with empty slots, a
-   wrapped ring with a window and a row with no valid slot (exactly 0).
-   Times at the served shapes beside the bound and the time of
+   wrapped ring with a window, a row with no valid slot (exactly 0) and a
+   32,768-slot cache whose splits hold several tiles. Times at the
+   served shapes beside the bound and the time of
    ``scaled_dot_product_attention`` on the same inputs (a yardstick the
-   port never calls).
+   port never calls): warm (events around each call, so a call shorter
+   than its host enqueue reads as the enqueue), device (the card held
+   busy while the host enqueues, so the events bracket the kernel only)
+   and, for decode, cold (device time after a 128 MB write flushes the
+   L2, as a served step finds each layer's cache). The build checks that
+   the tensor-core prefill issues ``HGMMA`` (``cuobjdump -sass``).
 3. Store path: three device-resident ``StoreReplica``s (basic mode,
    ``WireCodec(to_device=True)``, full mesh over a lossy, duplicating
    ``Simulator``) replicate a store holding the parameter set of
@@ -42,7 +48,8 @@ NVIDIA card. Run from the root of a checkout:
    to 4 requests of 1,000 prompt tokens with 32 greedy tokens each, then
    qwen2-1.5b to 2 requests with 16 tokens, with ``attn_impl="chunked"``:
    attention runs in the flash kernels, exactly once per layer for the
-   prefill and once per layer per decode step. The plain path
+   prefill (every bf16 launch on the tensor-core route) and once per
+   layer per decode step. The plain path
    (``attn_impl="naive"``) then scores the same tokens (teacher forcing)
    and every step's logits must agree within a bf16 tolerance, the
    greedy tokens wherever the plain path's top-1/top-2 margin exceeds
@@ -57,6 +64,7 @@ is present.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -86,10 +94,18 @@ TPU_KERNEL = {                   # the Pallas kernel each CUDA kernel replaces
 }
 SOURCE = "src/repro_torch/kernels/csrc/delta_join.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
-# published dense peaks of one H100 SXM: f32 on the CUDA cores (the flash
-# kernels' route in every dtype), bf16 / f16 on the tensor cores
+# the decode design's kernels as a trace names them: one kernel, whose
+# last block of each (row, KV head) also merges the splits
+DECODE_KERNEL_NAMES = ("flash_decode_kernel",)
+PREFILL_KERNEL_NAMES = ("flash_fwd_tc_kernel", "flash_fwd_kernel")
+# published dense peaks of one H100 SXM: f32 on the CUDA cores (the
+# decode kernel's and the CUDA-core prefill's route), bf16 / f16 on the
+# tensor cores (the tensor-core prefill's, which multiplies P twice: hi
+# and lo halves)
 F32_FLOPS = 67e12
 TYPE_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
+FLUSH_BYTES = 128 << 20          # written between cold timings: > 50 MB L2
+HOLD_CYCLES = 2_000_000          # ~1 ms of card busy while the host enqueues
 ATTN_RTOL = ATTN_ATOL = 2e-5     # f32 flash parity, the JAX package's bar
 ULP = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}   # at 1.0
 SERVE = (                        # arch, requests, prompt tokens, tokens out
@@ -158,6 +174,35 @@ def build() -> None:
             + f"; spills: {spills or 'none'}")
         _build.library(name)
     log(f"build_s={time.perf_counter() - t0:.3f}")
+    hgmma = sass_count(_build.lib_path("flash_attention"), "HGMMA")
+    log(f"HGMMA instructions in the SASS of each tensor-core kernel: "
+        f"{hgmma}")
+    if not hgmma or not all(hgmma.values()):
+        raise AssertionError("the tensor-core prefill issues no wgmma")
+
+
+def sass_count(lib, opcode) -> dict:
+    """``opcode``'s count in the SASS of each tensor-core prefill kernel
+    of the built library (``cuobjdump -sass`` from the CUDA toolkit)."""
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            fn = fn if "flash_fwd_tc_kernel" in fn else None
+            if fn:
+                counts[fn] = 0
+        elif fn and opcode in line:
+            counts[fn] += 1
+    short = {}
+    for name, n in counts.items():    # e.g. flash_fwd_tc_kernel<bf16, 64>
+        t = "f16" if "6__half" in name else "bf16"
+        hd = re.search(r"Li(\d+)E", name)
+        short[f"{t}/hd{hd.group(1) if hd else '?'}"] = n
+    return short
 
 
 # ---------------------------------------------------------------------------
@@ -181,16 +226,33 @@ def _close(x, y, what) -> float:
     return float((x - y).abs().max()) if x.numel() else 0.0
 
 
-def time_ms(fn, reps=20) -> float:
-    """Median device time of ``fn()`` over ``reps`` calls (CUDA events
-    around each call, after one warm-up)."""
+_flush = []                      # the cold timings' L2 flush buffer
+
+
+def time_ms(fn, reps=20, held=False, cold=False) -> float:
+    """Median time of ``fn()`` over ``reps`` calls: CUDA events around
+    each call, after one warm-up. By default the events see the card as
+    the host reaches it, so a call shorter than its own host enqueue reads
+    as the enqueue. ``held``: the card is first kept busy
+    (``torch.cuda._sleep``) while the host enqueues the events and the
+    call, so they bracket device time only. ``cold`` (held too): a
+    ``FLUSH_BYTES`` buffer is written before each call, outside the
+    events, so the call finds the 50 MB L2 cold, as a served step finds
+    each layer's cache."""
     import torch
+    if cold and not _flush:
+        _flush.append(torch.empty(FLUSH_BYTES // 4, dtype=torch.int32,
+                                  device="cuda"))
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for rep in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if cold:
+            _flush[0].fill_(rep)
+        if held or cold:
+            torch.cuda._sleep(HOLD_CYCLES)
         start.record()
         fn()
         end.record()
@@ -375,6 +437,8 @@ DECODE_CHECKS = [
      False),
     ("no-valid-row", 3, 4, 2, 96, 128, 50,
      {"window": 16, "softcap": 30.0, "scale": 0.0825}, (1,), False),
+    # splits of four 128-slot tiles through the decode ring
+    ("long-cache", 1, 16, 8, 32768, 64, 32000, {"window": 20000}, (), False),
 ]
 
 
@@ -403,16 +467,31 @@ def _attention_err(got, want, what) -> float:
     return err
 
 
-def _bound(flops, nbytes, dtype) -> dict:
+def _bound(flops, nbytes, dtype, route_flops, route_rate) -> dict:
     """Least time of the work on this card: the larger of the operations
     over the peak rate of their type and the bytes over the memory rate;
-    ``route_bound_ms`` takes the f32 CUDA-core rate the kernels use."""
+    ``route_bound_ms`` takes the operations the kernel's route issues
+    (``route_flops``) at that route's peak rate instead."""
     ops_ms = flops / TYPE_FLOPS[_dt(dtype)] * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return {"bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
-            "route_bound_ms": max(flops / F32_FLOPS * 1e3, bytes_ms),
+            "route_bound_ms": max(route_flops / route_rate * 1e3, bytes_ms),
             "flops": flops, "bytes": nbytes}
+
+
+def _timings(rec, fns, modes) -> None:
+    """Times of the kernel, its plain version and the library call (None:
+    no library call) in each mode: ``warm`` (the host's enqueue may be
+    inside the events), ``dev`` (held: device time, warm
+    L2) and ``cold`` (device time after an L2 flush). The row's ``ms``,
+    ``plain_ms`` and ``library_ms`` are those of the last mode."""
+    for mode in modes:
+        for key, fn in zip(("ms", "plain_ms", "library_ms"), fns):
+            rec[f"{mode}_{key}"] = None if fn is None else time_ms(
+                fn, held=mode == "dev", cold=mode == "cold")
+    for key in ("ms", "plain_ms", "library_ms"):
+        rec[key] = rec[f"{modes[-1]}_{key}"]
 
 
 def _ring(b, kv, C, hd, filled, dtype, dev, gen, empty_rows=()):
@@ -452,16 +531,22 @@ def _prefill_check(tag, b, h, kv, s, hd, opts, timed, dtype, dev) -> dict:
     window = opts.get("window") or s
     pairs = int(np.minimum(np.arange(1, s + 1), window).sum())
     es = q.element_size()
-    rec.update(_bound(4 * hd * b * h * pairs,
-                      es * (2 * b * h * s * hd + 2 * b * kv * s * hd),
-                      dtype))
-    rec["ms"] = time_ms(lambda: fa.flash_attention(q, k, v, **opts))
-    rec["plain_ms"] = time_ms(lambda: ref.attention_ref(q, k, v, **opts))
-    rec["library_ms"] = None
+    flops = 4 * hd * b * h * pairs
+    rec["route"] = fa.prefill_route(dtype, hd)
+    # the tensor-core route multiplies P twice (hi and lo halves): 1.5x
+    route = ((1.5 * flops, TYPE_FLOPS[_dt(dtype)]) if rec["route"] == "tc"
+             else (flops, F32_FLOPS))
+    rec.update(_bound(flops, es * (2 * b * h * s * hd + 2 * b * kv * s * hd),
+                      dtype, *route))
+    library = None
     if "softcap" not in opts and opts.get("window") is None:
-        rec["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True,
-            scale=opts.get("scale")))
+        def library():
+            return F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True,
+                scale=opts.get("scale"))
+    _timings(rec, (lambda: fa.flash_attention(q, k, v, **opts),
+                   lambda: ref.attention_ref(q, k, v, **opts), library),
+             ("warm", "dev"))
     torch.cuda.empty_cache()
     return rec
 
@@ -493,16 +578,19 @@ def _decode_check(tag, b, h, kv, C, hd, filled, opts, empty, timed, dtype,
         valid &= (qpos - kpos) < opts["window"]
     n_valid = int(valid.sum())          # (row, slot) pairs the step needs
     es = q.element_size()
-    rec.update(_bound(4 * hd * h * n_valid,
-                      2 * n_valid * kv * hd * es + 4 * b * C
-                      + 2 * b * h * hd * es + 4 * b, dtype))
-    rec["ms"] = time_ms(lambda: fa.flash_decode(q, k, v, qpos, kpos,
-                                                **opts))
-    rec["plain_ms"] = time_ms(lambda: ref.decode_ref(q, k, v, qpos, kpos,
-                                                     **opts))
+    flops = 4 * hd * h * n_valid
+    rec["route"] = "cuda cores"
+    rec.update(_bound(flops, 2 * n_valid * kv * hd * es + 4 * b * C
+                      + 2 * b * h * hd * es + 4 * b, dtype, flops,
+                      F32_FLOPS))
     mask = valid[:, None, None, :]
-    rec["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask, enable_gqa=True, scale=opts.get("scale")))
+    rec["splits"] = fa.decode_splits(b, kv, C, fa.decode_tile(hd, es))
+    _timings(rec, (
+        lambda: fa.flash_decode(q, k, v, qpos, kpos, **opts),
+        lambda: ref.decode_ref(q, k, v, qpos, kpos, **opts),
+        lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True,
+            scale=opts.get("scale"))), ("warm", "dev", "cold"))
     return rec
 
 
@@ -525,13 +613,17 @@ def flash_parity(dev) -> dict:
                                      rec.pop("max_abs_err"))
             if "ms" not in rec:
                 continue
-            lib = rec["library_ms"]
-            log(f"kernel {name} {case[0]} {_dt(dtype)}: ms={rec['ms']:.4f} "
-                f"plain_ms={rec['plain_ms']:.4f} library_ms="
-                + ("null" if lib is None else f"{lib:.4f}")
-                + f" bound_ms={rec['bound_ms']:.5f} ({rec['bound_by']}) "
-                f"route_bound_ms={rec['route_bound_ms']:.5f} "
-                f"flops={rec['flops']} bytes={rec['bytes']}")
+            times = " ".join(
+                f"{k}={'null' if v is None else f'{v:.4f}'}"
+                for k, v in rec.items() if k.endswith("ms")
+                and k.split("_")[0] in ("warm", "dev", "cold"))
+            log(f"kernel {name} {case[0]} {_dt(dtype)} ({rec['route']}"
+                + (f", splits {rec['splits']}" if "splits" in rec else "")
+                + f"): {times} bound_ms={rec['bound_ms']:.5f} "
+                f"({rec['bound_by']}) route_bound_ms="
+                f"{rec['route_bound_ms']:.5f} of_bound="
+                f"{rec['bound_ms'] / rec['ms']:.4f} flops={rec['flops']} "
+                f"bytes={rec['bytes']}")
             if case[0] == "qwen1.5-0.5b" and dtype == torch.bfloat16:
                 agg.update(rec)
         log(f"flash parity {_dt(dtype)} ok: {len(PREFILL_CHECKS)} prefill "
@@ -808,52 +900,77 @@ def _logit_checks(served, plain, tol_rel, what) -> dict:
     return {"worst_rel_gap": worst, "decisive": checked, "positions": total}
 
 
-def decode_breakdown(cfg, params, prompt, gen, steps=4) -> dict:
-    """Where a decode step's time goes: host clock per step (ending in a
-    synchronise), the host time to enqueue it, and — from a
-    ``torch.profiler`` trace of ``steps`` steps — the card's busy time
-    (sum of kernel durations) and the flash_decode kernel's part of it."""
+def _traced(what, steps, names) -> dict:
+    """Where the time of ``steps`` (calls, one step each) goes: host clock
+    per step (ending in a synchronise), the host time to enqueue it, and
+    — from a ``torch.profiler`` trace — the card's busy time (sum of
+    kernel durations) and the part of it in kernels whose name holds one
+    of ``names``, per step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models import decode_step, prefill
-
-    b = next(iter(prompt.values())).shape[0]
-    n = sum(v.shape[1] for v in prompt.values())
-    logits, caches = prefill(cfg, params, prompt, max_len=n + gen)
-    tok = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
-    torch.cuda.synchronize()
     enqueue, wall = [], []
-    trace = ROOT / "build" / f"decode_trace_{cfg.name}.json"
+    trace = ROOT / "build" / f"trace_{what.replace(' ', '_')}.json"
     trace.parent.mkdir(parents=True, exist_ok=True)
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for k in range(steps):
-            pos = torch.full((b, 1), n + k, dtype=torch.int32,
-                             device=tok.device)
+        for step in steps:
             t0 = time.perf_counter()
-            logits, caches = decode_step(cfg, params, tok, pos, caches)
+            step()
             enqueue.append(time.perf_counter() - t0)
             torch.cuda.synchronize()
             wall.append(time.perf_counter() - t0)
     prof.export_chrome_trace(str(trace))
     kernels = [e for e in json.loads(trace.read_text())["traceEvents"]
                if e.get("cat") == "kernel"]
-    busy_us = sum(e["dur"] for e in kernels)
-    flash_us = sum(e["dur"] for e in kernels
-                   if "flash_decode_kernel" in e["name"])
+    mine = [e for e in kernels if any(n in e["name"] for n in names)]
+    n = len(steps)
     rec = {"step_ms": 1e3 * float(np.median(wall)),
            "enqueue_ms": 1e3 * float(np.median(enqueue)),
-           "kernels_per_step": len(kernels) / steps,
-           "device_busy_ms": busy_us / 1e3 / steps,
-           "flash_decode_ms": flash_us / 1e3 / steps}
+           "kernels_per_step": len(kernels) / n,
+           "device_busy_ms": sum(e["dur"] for e in kernels) / 1e3 / n,
+           "kernel_ms": sum(e["dur"] for e in mine) / 1e3 / n,
+           "kernel_launches_per_step": len(mine) / n}
     rec["busy_share"] = (rec["device_busy_ms"] / rec["step_ms"]
                          if kernels else None)
-    log(f"decode step {cfg.name} (profiled, {steps} steps): "
+    log(f"{what} (profiled, {n} steps; kernel = {'/'.join(names)}): "
         + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
                    for k, v in rec.items())
         + ("" if kernels else " — the profiler saw no device time: busy "
            "share not measured"))
     return rec
+
+
+def decode_breakdown(cfg, params, prompt, gen, steps=4) -> dict:
+    """Where a decode step's time goes (``_traced``), flash_decode's part
+    of the card's busy time."""
+    import torch
+    from repro_torch.models import decode_step, prefill
+
+    b = next(iter(prompt.values())).shape[0]
+    n = sum(v.shape[1] for v in prompt.values())
+    logits, caches = prefill(cfg, params, prompt, max_len=n + gen)
+    tok = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
+    state = {"caches": caches}
+
+    def step(k):
+        pos = torch.full((b, 1), n + k, dtype=torch.int32, device=tok.device)
+        _, state["caches"] = decode_step(cfg, params, tok, pos,
+                                         state["caches"])
+    return _traced(f"decode step {cfg.name}",
+                   [lambda k=k: step(k) for k in range(steps)],
+                   DECODE_KERNEL_NAMES)
+
+
+def prefill_breakdown(cfg, params, prompt, gen, steps=2) -> dict:
+    """Where a prefill's time goes (``_traced``), flash_attention's part
+    of the card's busy time."""
+    from repro_torch.models import prefill
+
+    n = sum(v.shape[1] for v in prompt.values())
+    return _traced(f"prefill {cfg.name}",
+                   [lambda: prefill(cfg, params, prompt, max_len=n + gen)]
+                   * steps, PREFILL_KERNEL_NAMES)
 
 
 def serve_path(dev) -> dict:
@@ -888,6 +1005,11 @@ def serve_path(dev) -> dict:
         if got != want:
             raise AssertionError(f"serve {arch}: launches {got}, expected "
                                  f"{want}")
+        # every bf16 prefill launch took the tensor-core route
+        if fa.routes != {"flash_attention_tc": L, "flash_attention_simt": 0}:
+            raise AssertionError(f"serve {arch}: prefill routes "
+                                 f"{fa.routes}, expected all {L} on the "
+                                 "tensor cores")
         for k in launches:
             launches[k] += got[k]
         if run.tokens.shape != (b, gen) or not (
@@ -902,7 +1024,8 @@ def serve_path(dev) -> dict:
             f"decode_s={run.decode_s:.4f} "
             f"prefill_tok_per_s={rec['prefill_tok_per_s']:.1f} "
             f"decode_tok_per_s={rec['decode_tok_per_s']:.1f} "
-            f"launches={got}; req 0: {run.tokens[0].tolist()}")
+            f"launches={got} routes={dict(fa.routes)}; req 0: "
+            f"{run.tokens[0].tolist()}")
 
         plain_cfg = dataclasses.replace(cfg, attn_impl="naive")
         plain = generate(plain_cfg, params, prompt, gen, keep_logits=True,
@@ -914,6 +1037,7 @@ def serve_path(dev) -> dict:
         rec.update(_logit_checks(run, plain, SERVE_LOGIT_TOL,
                                  f"serve {arch} chunked vs naive"))
         rec["decode_step"] = decode_breakdown(cfg, params, prompt, gen)
+        rec["prefill_step"] = prefill_breakdown(cfg, params, prompt, gen)
         out[arch] = rec
         del params, run, plain
         torch.cuda.empty_cache()

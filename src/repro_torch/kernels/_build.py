@@ -44,10 +44,14 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # q, k, v, o; scale, window, softcap, dtype, stream
         "rt_flash_attention": (P, P, P, P) + (I32,) * 6 + (I64,) * 12
         + (F32, I32, F32, I32, P),
-        # q, k, v, q_pos, k_pos, o; B, H, KV, C, hd; strides of q (2),
-        # k (3), v (3), q_pos (1), k_pos (2), o (2); scale, window,
-        # softcap, dtype, stream
-        "rt_flash_decode": (P,) * 6 + (I32,) * 5 + (I64,) * 13
+        # the same arguments, tensor-core route
+        "rt_flash_attention_tc": (P, P, P, P) + (I32,) * 6 + (I64,) * 12
+        + (F32, I32, F32, I32, P),
+        # q, k, v, q_pos, k_pos, o, partials, counters; B, H, KV, C, hd,
+        # splits, slots per split, slots per tile, threads per slot, vec;
+        # strides of q (2), k (3), v (3), q_pos (1), k_pos (2), o (2);
+        # scale, window, softcap, dtype, stream
+        "rt_flash_decode": (P,) * 8 + (I32,) * 10 + (I64,) * 13
         + (F32, I32, F32, I32, P),
     },
 }

@@ -23,13 +23,23 @@ ragged tails themselves.
 
 Dispatch is by the tensors' device, never by a fallback: tensors on the
 card launch the kernel (or raise), tensors on the CPU run the plain
-version in ``ref``. ``launches`` counts kernel launches by name; the CPU
-route adds nothing.
+version in ``ref``. ``launches`` counts kernel launches by name and
+``routes`` the prefill launches by route; the CPU route adds to neither.
+
+Prefill takes one of two kernels by one rule of dtype and head_dim
+(:func:`prefill_route`): bf16 or f16 at head_dim 64 or 128 runs on the
+tensor cores (``"tc"``: ``wgmma``, which also needs 16-byte aligned bases
+and (batch, head, seq) strides that are multiples of 8 elements, or the
+wrapper raises); f32 and every other head_dim run on the CUDA cores
+(``"simt"``). Decode splits the cache into :func:`decode_splits` ranges,
+one block per (range, KV head, row), scores each slot with
+:func:`decode_threads_per_slot` threads and merges the ranges in order.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import functools
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,13 +50,82 @@ from .delta_join import VALUE_DTYPES, _kernel_route, _raise_on, _stream
 
 MAX_HEAD_DIM = 256
 NO_WINDOW = 2 ** 31 - 1      # the kernels' "no window"
+TC_DTYPES = (torch.bfloat16, torch.float16)
+TC_HEAD_DIMS = (64, 128)
+SMS = 132                    # streaming multiprocessors of an H100 SXM
+DECODE_SLOTS = 128           # slots of a decode tile at most
+DECODE_STAGE_BYTES = 72 * 1024   # K and V of one decode tile at most
 
 launches: Dict[str, int] = {"flash_attention": 0, "flash_decode": 0}
+routes: Dict[str, int] = {"flash_attention_tc": 0, "flash_attention_simt": 0}
+# per (device, stream): the decode kernel's merge counters, zero between
+# launches (each launch leaves them zero)
+_counters: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, routes):
+        for k in counts:
+            counts[k] = 0
+
+
+def prefill_route(dtype: torch.dtype, hd: int) -> str:
+    """The prefill kernel for ``dtype`` and head_dim ``hd``: ``"tc"``
+    (tensor cores) for bf16 / f16 at head_dim 64 or 128, else ``"simt"``
+    (f32 FMA on the CUDA cores)."""
+    return "tc" if dtype in TC_DTYPES and hd in TC_HEAD_DIMS else "simt"
+
+
+def decode_tile(hd: int, elem: int) -> int:
+    """Slots a decode tile holds: one per thread (128), halved (down to
+    32) while its K and V rows — ``hd`` elements of ``elem`` bytes,
+    padded to whole 16-byte chunks plus one — exceed
+    ``DECODE_STAGE_BYTES``."""
+    row = (-(-hd * elem // 16) + 1) * 16
+    tile = DECODE_SLOTS
+    while tile > 32 and 2 * tile * row > DECODE_STAGE_BYTES:
+        tile //= 2
+    return tile
+
+
+@functools.lru_cache(maxsize=256)
+def decode_splits(b: int, kv: int, C: int, tile: int) -> Tuple[int, int]:
+    """``(splits, slots per split)`` of the decode grid (splits, kv, b):
+    two blocks per SM (the split count rounded up to a power of two) where
+    the cache allows, each split a whole number of ``tile``-slot tiles
+    (rounded down, at least one); only the last split is short."""
+    want = 1 << (-(-2 * SMS // max(1, b * kv)) - 1).bit_length()
+    n = max(1, min(want, -(-C // tile)))
+    per = max(1, -(-C // n) // tile) * tile
+    return max(1, -(-C // per)), per
+
+
+def decode_threads_per_slot(group: int, hd: int, blocks: int) -> int:
+    """Threads that score one cache slot in a decode block: 4 when its
+    ``group`` query heads' dots are long (``group >= 3`` and
+    ``group * hd >= 512``) and the grid's ``blocks`` leave SMs idle (fewer
+    than ``SMS``), so each block's work is spread over 512 threads; else
+    1 (128 threads a block, several blocks an SM)."""
+    return 4 if group >= 3 and group * hd >= 512 and blocks < SMS else 1
+
+
+def _aligned16(*tensors: torch.Tensor) -> bool:
+    """Every base 16-byte aligned, and every (batch, head, seq) stride of
+    an axis longer than 1 a whole number of 16-byte units."""
+    return all(t.data_ptr() % 16 == 0 and all(
+        st * t.element_size() % 16 == 0
+        for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1)
+        for t in tensors)
+
+
+def _decode_counters(device: torch.device, stream: int,
+                     n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
 
 
 def _options(hd: int, scale, window, softcap):
@@ -92,7 +171,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: Optional[int] = None,
                     softcap: Optional[float] = None) -> torch.Tensor:
     """Causal attention. q [b, h, sq, hd]; k, v [b, kv, sk, hd]; returns
-    [b, h, sq, hd] in q's dtype and memory order."""
+    [b, h, sq, hd] in q's dtype and memory order. On the card the kernel
+    is :func:`prefill_route`'s: bf16 / f16 at head_dim 64 or 128 on the
+    tensor cores (16-byte aligned operands, else ValueError), everything
+    else on the CUDA cores."""
     _check_qkv(q, k, v)
     b, h, sq, hd = q.shape
     scale_, window_, softcap_ = _options(hd, scale, window, softcap)
@@ -101,15 +183,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                  softcap=softcap)
     _kernel_operands(q, k, v)
     o = torch.empty_like(q)      # q's memory order (its hd is contiguous)
+    route = prefill_route(q.dtype, hd)
+    if route == "tc" and not _aligned16(q, k, v, o):
+        raise ValueError("the tensor-core prefill needs 16-byte aligned "
+                         "q, k, v and (batch, head, seq) strides that are "
+                         "multiples of 8 elements")
     kv, sk = k.shape[1], k.shape[2]
     if b and sq and h:
-        rc = library("flash_attention").rt_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            b, h, kv, sq, sk, hd, *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], *o.stride()[:3], scale_, window_, softcap_,
-            VALUE_DTYPES[q.dtype], _stream(q))
+        lib = library("flash_attention")
+        fn = lib.rt_flash_attention_tc if route == "tc" \
+            else lib.rt_flash_attention
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                b, h, kv, sq, sk, hd, *q.stride()[:3], *k.stride()[:3],
+                *v.stride()[:3], *o.stride()[:3], scale_, window_, softcap_,
+                VALUE_DTYPES[q.dtype], _stream(q))
         _raise_on(rc, "flash_attention")
         launches["flash_attention"] += 1
+        routes[f"flash_attention_{route}"] += 1
     return o
 
 
@@ -138,12 +228,25 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _kernel_operands(q, k, v)
     o = torch.empty_like(q)      # q's memory order (its hd is contiguous)
     if b and h:
+        kv = k.shape[1]
+        tile = decode_tile(hd, q.element_size())
+        splits, per = decode_splits(b, kv, C, tile)
+        stream = _stream(q)
+        # f32 partials of every split and query head: acc[hd], then
+        # (from a multiple of four floats) m and l
+        n = b * h * splits
+        part = torch.empty(-(-n * hd // 4) * 4 + 2 * n, dtype=torch.float32,
+                           device=q.device)
         rc = library("flash_attention").rt_flash_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-            k_pos.data_ptr(), o.data_ptr(), b, h, k.shape[1], C, hd,
+            k_pos.data_ptr(), o.data_ptr(), part.data_ptr(),
+            _decode_counters(q.device, stream, b * kv).data_ptr(), b, h, kv,
+            C, hd, splits, per, tile,
+            decode_threads_per_slot(h // kv, hd, splits * kv * b),
+            int(_aligned16(k, v)),
             *q.stride()[:2], *k.stride()[:3], *v.stride()[:3],
             q_pos.stride(0), *k_pos.stride(), *o.stride()[:2], scale_,
-            window_, softcap_, VALUE_DTYPES[q.dtype], _stream(q))
+            window_, softcap_, VALUE_DTYPES[q.dtype], stream)
         _raise_on(rc, "flash_decode")
         launches["flash_decode"] += 1
     return o

@@ -234,20 +234,112 @@ def test_flash_decode_kernel_matches_plain(card, dtype, b, h, kv, C, hd,
 @pytest.mark.cuda
 def test_flash_kernels_take_the_models_layouts(card):
     """Strided [b, s, H, hd] / [b, C, KV, hd] views give the contiguous
-    call's result, returned in the caller's memory order."""
+    call's result, returned in the caller's memory order — on both
+    prefill routes (bf16: tensor cores, f32: CUDA cores)."""
     g = torch.Generator(device=card).manual_seed(9)
     b, s, H, KV, hd = 2, 70, 6, 2, 64
-    q = _randn((b, s, H, hd), torch.bfloat16, card, g)
-    k = _randn((b, s, KV, hd), torch.bfloat16, card, g)
-    v = _randn((b, s, KV, hd), torch.bfloat16, card, g)
-    views = [t.transpose(1, 2) for t in (q, k, v)]
-    out = fa.flash_attention(*views)
-    assert out.transpose(1, 2).is_contiguous()
-    assert torch.equal(out, fa.flash_attention(
-        *[t.contiguous() for t in views]))
-    pos = torch.arange(s, dtype=torch.int32, device=card)[None].repeat(b, 1)
-    qpos = torch.full((b, 1), s - 1, dtype=torch.int32, device=card)
-    dec = fa.flash_decode(views[0][:, :, -1:], views[1], views[2], qpos, pos)
-    assert torch.equal(dec, fa.flash_decode(
-        views[0][:, :, -1:].contiguous(), views[1].contiguous(),
-        views[2].contiguous(), qpos, pos))
+    for dtype, route in ((torch.bfloat16, "tc"), (torch.float32, "simt")):
+        q = _randn((b, s, H, hd), dtype, card, g)
+        k = _randn((b, s, KV, hd), dtype, card, g)
+        v = _randn((b, s, KV, hd), dtype, card, g)
+        views = [t.transpose(1, 2) for t in (q, k, v)]
+        before = fa.routes[f"flash_attention_{route}"]
+        out = fa.flash_attention(*views)
+        assert fa.routes[f"flash_attention_{route}"] == before + 1
+        assert out.transpose(1, 2).is_contiguous()
+        assert torch.equal(out, fa.flash_attention(
+            *[t.contiguous() for t in views]))
+        pos = torch.arange(s, dtype=torch.int32,
+                           device=card)[None].repeat(b, 1)
+        qpos = torch.full((b, 1), s - 1, dtype=torch.int32, device=card)
+        dec = fa.flash_decode(views[0][:, :, -1:], views[1], views[2], qpos,
+                              pos)
+        assert torch.equal(dec, fa.flash_decode(
+            views[0][:, :, -1:].contiguous(), views[1].contiguous(),
+            views[2].contiguous(), qpos, pos))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd,route", [
+    (torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
+    (torch.float16, 64, "tc"), (torch.float16, 128, "tc"),
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+    (torch.bfloat16, 32, "simt"), (torch.float16, 256, "simt")])
+def test_prefill_takes_the_route_of_its_rule(card, dtype, hd, route):
+    """bf16 / f16 at head_dim 64 or 128 launch the tensor-core kernel,
+    everything else the CUDA-core one; both match the plain version."""
+    assert fa.prefill_route(dtype, hd) == route
+    g = torch.Generator(device=card).manual_seed(hd)
+    q = _randn((1, 4, 200, hd), dtype, card, g)
+    k = _randn((1, 2, 200, hd), dtype, card, g)
+    v = _randn((1, 2, 200, hd), dtype, card, g)
+    before = dict(fa.routes)
+    got = fa.flash_attention(q, k, v, window=90)
+    torch.cuda.synchronize()
+    _assert_attention_close(got, ref.attention_ref(q, k, v, window=90))
+    other = "simt" if route == "tc" else "tc"
+    assert fa.routes[f"flash_attention_{route}"] == \
+        before[f"flash_attention_{route}"] + 1
+    assert fa.routes[f"flash_attention_{other}"] == \
+        before[f"flash_attention_{other}"]
+
+
+@pytest.mark.cuda
+def test_tensor_core_route_refuses_unaligned_operands(card):
+    g = torch.Generator(device=card).manual_seed(3)
+    wide = _randn((1, 2, 64, 72), torch.bfloat16, card, g)
+    q = wide[..., 4:68]                   # 8-byte offset: not 16-byte aligned
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q, q)
+
+
+SPLIT_CASES = [
+    # b, h, kv, C, hd, filled, options, rows with no valid slot
+    (2, 4, 2, 1, 64, 1, {}, ()),                            # C = 1
+    (2, 6, 2, 20, 128, 20, {}, ()),                         # C < one split
+    (2, 4, 2, 300, 64, 300, {"softcap": 30.0}, ()),         # ragged split
+    (1, 8, 2, 256, 64, 256, {"window": 40}, ()),            # masked splits
+    (2, 4, 1, 128, 128, 300, {"window": 100}, (1,)),        # ring + window
+    (2, 6, 2, 70, 36, 60, {}, ()),                          # unaligned rows
+    (1, 16, 8, 32768, 64, 32000, {"window": 20000}, ()),    # 4-tile splits
+    (1, 32, 4, 65536, 64, 65000, {"softcap": 30.0}, ()),    # G = 8, 4 tiles
+    (1, 32, 2, 300, 36, 250, {"window": 200}, ()),          # 4 threads a slot
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,kv,C,hd,filled,opts,empty", SPLIT_CASES)
+def test_flash_decode_split_edges(card, dtype, b, h, kv, C, hd, filled, opts,
+                                  empty):
+    """The split decode at the edges of its split: one slot, fewer slots
+    than a split, a short last split, splits with no valid slot (ahead of
+    a window), a wrapped ring with a window and an empty row, rows that do
+    not start 16-byte aligned (element copies), splits of several tiles
+    streaming through the ring, and four threads a slot (long dots, few
+    blocks)."""
+    g = torch.Generator(device=card).manual_seed(C + hd)
+    k, v, kpos = _ring(b, kv, C, hd, filled, dtype, card, g, empty)
+    q = _randn((b, h, 1, hd), dtype, card, g)
+    qpos = torch.full((b, 1), filled, dtype=torch.int32, device=card)
+    got = fa.flash_decode(q, k, v, qpos, kpos, **opts)
+    want = ref.decode_ref(q, k, v, qpos, kpos, **opts)
+    torch.cuda.synchronize()
+    _assert_attention_close(got, want)
+    for r in empty:
+        assert not got[r].any()        # exactly zero
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_decode_is_deterministic(card, dtype):
+    """Two identical launches give the same bits: the splits merge in one
+    fixed order, with no float atomics."""
+    g = torch.Generator(device=card).manual_seed(5)
+    k, v, kpos = _ring(2, 2, 1016, 128, 1008, dtype, card, g)
+    q = _randn((2, 12, 1, 128), dtype, card, g)
+    qpos = torch.full((2, 1), 1008, dtype=torch.int32, device=card)
+    assert fa.decode_splits(2, 2, 1016, fa.decode_tile(128, 2))[0] > 1
+    one = fa.flash_decode(q, k, v, qpos, kpos)
+    two = fa.flash_decode(q, k, v, qpos, kpos)
+    assert torch.equal(_bits(one), _bits(two))
