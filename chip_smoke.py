@@ -43,7 +43,21 @@ NVIDIA card. Run from the root of a checkout:
 4. Steady-state ingest: launches and staged bytes of one wire ingest are
    the same at the full and at half the store size.
 5. Top-k: the resident digest ranking equals the host greedy selection.
-6. Serve path: ``repro_torch.launch.serve``'s model part serves
+6. Dot stores, at the sizes of ``benchmarks/bench_dots.py``: the causal
+   join of two DotSet states of 1,062,500 dots over 4 replicas runs
+   ``causal_join_cols`` with its containment mask on the card (mask
+   launches counted from 0 around it, at least one required), bit-
+   identical to the numpy path and equal to the frozenset ``causal_join``
+   oracle; median host times of 5 joins on each path, run in turns, and
+   the mask's share of them. ``missing_mask`` on the card (staging included, and on
+   resident operands; CUDA-event medians of 20, card held) and with numpy
+   at 1M and 16M packed dots, with a 65,536-dot cloud and without, beside
+   the bytes bound; masks bit-identical. Then the per-dot reconnect of a
+   999,000-dot ORMap between two causal ``StoreReplica``s (digest-sync,
+   wire, no loss) with its masks on the card: it converges to the
+   responder's state, the pull stays within 5% of one full-state frame,
+   and its bytes equal the reference's (constants the CPU tests confirm).
+7. Serve path: ``repro_torch.launch.serve``'s model part serves
    qwen1.5-0.5b (published config, bf16, random weights from the seed)
    to 4 requests of 1,000 prompt tokens with 32 greedy tokens each, then
    qwen2-1.5b to 2 requests with 16 tokens, with ``attn_impl="chunked"``:
@@ -55,6 +69,10 @@ NVIDIA card. Run from the root of a checkout:
    greedy tokens wherever the plain path's top-1/top-2 margin exceeds
    twice the logits' gap; and an f32 run of qwen1.5-0.5b at full width,
    2 layers deep, must agree with its plain path at rtol = atol = 1e-3.
+   After qwen1.5-0.5b's batch, ``serve --replicate``'s code path
+   replicates its session table over 3 gateways (every status "done"),
+   and each model is served 5 more times on each attention path, in
+   turns, for medians of prefill time and decode rate with their spread.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase
 raises and the script exits non-zero without it, as it does when no card
@@ -118,6 +136,28 @@ SERVE = (                        # arch, requests, prompt tokens, tokens out
 SERVE_LOGIT_TOL = 0.05           # of max|logits|
 F32_DEPTH = 2                    # layers of the f32 full-width check
 F32_RTOL = F32_ATOL = 1e-3
+SERVE_REPEATS = 5                # timed runs of each attn_impl, in turns
+SESSION_GATEWAYS = 3
+# dot stores at the sizes of an OR-Set / session-table deployment
+# (benchmarks/bench_dots.py): a 1,062,500-dot causal join over 4
+# replicas, and a reconnect of a 999,000-dot ORMap (2,000 keys of 500
+# dots; every 10th key missed 10 writes, every 10th key offset 5 lost 5
+# elements at the responder)
+JOIN_PER_RID = 250_000
+JOIN_REPEATS = 5
+RECONNECT = {"n_keys": 2000, "per_key": 500, "missing_tail": 10,
+             "removed_head": 5}
+# the reference's pull at that size (digest request, response) and its
+# one full-state frame: the figures tests/test_torch_replica.py confirms
+# on the CPU for both packages
+RECONNECT_REQUEST_BYTES = 21_284
+RECONNECT_RESPONSE_BYTES = 71_530
+RECONNECT_FULL_STATE_BYTES = 10_544_464
+RECONNECT_MAX_SHARE = 0.05       # of the full-state frame
+MASK_DOTS = (1 << 20, 1 << 24)   # 8 MB and 128 MB int64 dot columns
+MASK_RIDS = 64
+MASK_CLOUD = 1 << 16
+MASK_NUMPY_REPS = 5
 
 
 def log(*parts) -> None:
@@ -584,7 +624,8 @@ def _decode_check(tag, b, h, kv, C, hd, filled, opts, empty, timed, dtype,
                       + 2 * b * h * hd * es + 4 * b, dtype, flops,
                       F32_FLOPS))
     mask = valid[:, None, None, :]
-    rec["splits"] = fa.decode_splits(b, kv, C, fa.decode_tile(hd, es))
+    rec["splits"] = fa.decode_splits(b, kv, C, fa.decode_tile(hd, es),
+                                     fa.sm_count(q.device))
     _timings(rec, (
         lambda: fa.flash_decode(q, k, v, qpos, kpos, **opts),
         lambda: ref.decode_ref(q, k, v, qpos, kpos, **opts),
@@ -864,7 +905,289 @@ def topk_check(store, dev) -> None:
 
 
 # ---------------------------------------------------------------------------
-# 6. Serve path
+# 6. Dot stores: the columnar causal join, its containment mask, reconnect
+# ---------------------------------------------------------------------------
+
+def join_inputs(per_rid):
+    """Two divergent DotSet states over rids a..d, built as packed columns
+    (``benchmarks/bench_dots.py``'s ``_join_inputs``): A holds a and b in
+    full and has seen and removed c up to ``per_rid // 2``; B holds a up
+    to ``per_rid // 4`` and c, d in full, and has seen and removed b up to
+    ``per_rid // 5``. Returns the port's ``(sa, ca, sb, cb)``."""
+    from repro_torch.convert import dotstore_from_numpy
+    from repro_torch.core.dotcols import SEQ_BITS
+
+    def packed(rid, lo, hi):
+        return ((np.int64(rid) << SEQ_BITS)
+                | np.arange(lo, hi + 1, dtype=np.int64))
+
+    n, rids = per_rid, ("a", "b", "c", "d")
+    sa, ca = dotstore_from_numpy(
+        rids, np.concatenate([packed(0, 1, n), packed(1, 1, n)]),
+        [n, n, n // 2, 0])
+    sb, cb = dotstore_from_numpy(
+        rids, np.concatenate([packed(0, 1, n // 4), packed(2, 1, n),
+                              packed(3, 1, n)]), [n // 4, n // 5, n, n])
+    return sa, ca, sb, cb
+
+
+def big_ormap(n_keys, per_key, missing_tail, removed_head):
+    """A requester / responder pair of ORMaps of AWORSets, one rid and
+    ``per_key`` dots a key, each element equal to its seq
+    (``bench_dots.py``'s ``_big_ormap``): every 10th key the requester
+    missed the last ``missing_tail`` writes; every 10th key offset 5 the
+    responder removed the first ``removed_head`` elements."""
+    from repro_torch.convert import dotstore_from_numpy
+    from repro_torch.core.crdts import ORMap
+    from repro_torch.core.dotcols import SEQ_BITS
+
+    rids = tuple(f"r{j:04d}" for j in range(n_keys))
+    keys = tuple(f"k{j:04d}" for j in range(n_keys))
+
+    def build(missed):
+        vv = np.full(n_keys, per_key, np.int64)
+        seqs = []
+        for j in range(n_keys):
+            lo, hi = 1, per_key
+            if missed and j % 10 == 0:
+                hi = vv[j] = per_key - missing_tail
+            if not missed and j % 10 == 5:
+                lo = removed_head + 1
+            seqs.append(np.arange(lo, hi + 1, dtype=np.int64))
+        counts = [c.size for c in seqs]
+        seq = np.concatenate(seqs)
+        rid = np.repeat(np.arange(n_keys, dtype=np.int64), counts)
+        return ORMap(*dotstore_from_numpy(
+            rids, (rid << SEQ_BITS) | seq, vv, vals=seq, keys=keys,
+            offsets=np.concatenate([[0], np.cumsum(counts)])))
+
+    return build(True), build(False)
+
+
+def reconnect(n_keys, per_key, missing_tail, removed_head) -> dict:
+    """``bench_dots.py``'s per-dot reconnect in the port: two causal
+    ``StoreReplica``s under ``digest-sync`` with the wire on and no loss;
+    the stale one sends its digest, the peer answers with the dots it
+    lacks. Masks run where the caller's ``mask_device`` scope says."""
+    import random
+    from repro_torch.core import (LatticeStore, NetConfig, Simulator,
+                                  StoreReplica, make_policy)
+    from repro_torch.wire import WireCodec, encode_frame, encode_value
+
+    req_map, resp_map = big_ormap(n_keys, per_key, missing_tail,
+                                  removed_head)
+    wire = WireCodec()
+    sim = Simulator(NetConfig(loss=0.0, seed=21))
+    stale, peer = (sim.add_node(StoreReplica(
+        me, [other], causal=True, wire=wire,
+        policy=make_policy("digest-sync"), rng=random.Random(3)))
+        for me, other in (("stale", "peer"), ("peer", "stale")))
+    stale.X = LatticeStore.of({"map": req_map})
+    peer.X = LatticeStore.of({"map": resp_map})
+    t0 = time.perf_counter()
+    stale.on_periodic()                  # digest out, per-dot response back
+    sim.run_for(5.0)
+    wall = time.perf_counter() - t0
+    return {"dots": int(resp_map.store.packed.size),
+            "converged": stale.X == peer.X,
+            "request_bytes": sim.stats.bytes_by_kind.get("digest", 0),
+            "response_bytes": sim.stats.bytes_by_kind.get("digest-resp", 0),
+            "full_state_bytes": len(encode_frame("state",
+                                                 encode_value(peer.X))),
+            "wall_s": wall}
+
+
+def _same_join(got, want, what) -> None:
+    (gs, gc), (ws, wc) = got, want
+    if not (gs.rids == ws.rids == gc.rids == wc.rids
+            and np.array_equal(gs.packed, ws.packed)
+            and np.array_equal(gc.vvcol, wc.vvcol)
+            and np.array_equal(gc.cloudcol, wc.cloudcol)):
+        raise AssertionError(f"{what}: joins differ")
+
+
+def _host_times(fn, reps) -> list:
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def mask_inputs(n, with_cloud, seed):
+    """``n`` sorted packed dots over ``MASK_RIDS`` replicas (seqs 1 ..
+    n / MASK_RIDS each), a vv column between a quarter of that and all
+    of it, and — ``with_cloud`` — a sorted cloud of ``MASK_CLOUD`` dots
+    drawn from those above the vv."""
+    from repro_torch.core.dotcols import SEQ_BITS
+    rng = np.random.default_rng(seed)
+    per = n // MASK_RIDS
+    rid = np.repeat(np.arange(MASK_RIDS, dtype=np.int64), per)
+    seq = np.tile(np.arange(1, per + 1, dtype=np.int64), MASK_RIDS)
+    dots = (rid << SEQ_BITS) | seq
+    vv = rng.integers(per // 4, per, MASK_RIDS).astype(np.int64)
+    cloud = np.zeros(0, np.int64)
+    if with_cloud:
+        cloud = np.sort(rng.choice(dots[seq > vv[rid]], MASK_CLOUD,
+                                   replace=False))
+    return vv, cloud, dots
+
+
+def mask_scaling(dev) -> list:
+    """``missing_mask`` on the card (staging included, and on operands
+    already there) and with numpy at about 1M and 16M dots, with a cloud
+    and without: bit-identical masks, times beside the bytes bound (the
+    columns read once, the mask written once, over the memory rate)."""
+    import torch
+    from repro_torch.core import dotcols
+    from repro_torch.kernels import ops
+
+    rows = []
+    for n in MASK_DOTS:
+        for with_cloud in (False, True):
+            vv, cloud, dots = mask_inputs(n, with_cloud, SEED + n)
+            want = dotcols.missing_mask(vv, cloud, dots, backend="numpy")
+            with dotcols.mask_device(dev):
+                snap = ops.counters.snapshot()
+                got = dotcols.missing_mask(vv, cloud, dots, backend="torch")
+                moved = ops.counters.since(snap)
+                if not np.array_equal(got, want):
+                    raise AssertionError(f"missing_mask at {n} dots: card "
+                                         "differs from numpy")
+                card_ms = time_ms(lambda: dotcols.missing_mask(
+                    vv, cloud, dots, backend="torch"), held=True)
+            cols = [torch.from_numpy(c).to(dev) for c in (vv, cloud, dots)]
+            on_card = dotcols._torch_missing(*cols)
+            if not np.array_equal(on_card.cpu().numpy(), want):
+                raise AssertionError(f"missing_mask at {n} dots: resident "
+                                     "operands differ from numpy")
+            device_ms = time_ms(lambda: dotcols._torch_missing(*cols),
+                                held=True)
+            numpy_ms = 1e3 * float(np.median(_host_times(
+                lambda: dotcols.missing_mask(vv, cloud, dots,
+                                             backend="numpy"),
+                MASK_NUMPY_REPS)))
+            nbytes = vv.nbytes + cloud.nbytes + dots.nbytes + n
+            row = {"dots": n, "cloud": int(cloud.size), "ms": card_ms,
+                   "device_ms": device_ms, "numpy_ms": numpy_ms,
+                   "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                   "bytes": nbytes, "h2d_bytes": moved["h2d_bytes"],
+                   "d2h_bytes": moved["d2h_bytes"],
+                   "missing": int(want.sum())}
+            log("missing_mask " + " ".join(
+                f"{k}={v:.5f}" if isinstance(v, float) else f"{k}={v}"
+                for k, v in row.items()))
+            rows.append(row)
+            del cols, on_card
+            torch.cuda.empty_cache()
+    return rows
+
+
+def dots_path(dev) -> dict:
+    """The dot-store phase: the 1,062,500-dot causal join with its mask on
+    the card (launches counted from 0 around it), held bit-identical to
+    the numpy path and equal to the frozenset oracle; median host times
+    of both paths and the mask's share; the mask's scaling; the
+    999,000-dot per-dot reconnect with its masks on the card."""
+    from repro_torch.core import dotcols
+    from repro_torch.core.dots import causal_join
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    sa, ca, sb, cb = join_inputs(JOIN_PER_RID)
+    total = int(sa.packed.size + sb.packed.size)
+    log(f"dots: join inputs of {total} dots made in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    dotcols.launches["missing_mask"] = 0
+    snap = ops.counters.snapshot()
+    with dotcols.mask_device(dev):
+        got = dotcols.causal_join_cols(sa, ca, sb, cb)
+    moved = ops.counters.since(snap)
+    launches = dotcols.launches["missing_mask"]
+    if launches < 1:
+        raise AssertionError("the 1M-dot causal join launched no mask on "
+                             "the card")
+    with dotcols.mask_device("cpu"):
+        want = dotcols.causal_join_cols(sa, ca, sb, cb)
+    _same_join(got, want, "1M-dot join, card mask vs numpy")
+    t0 = time.perf_counter()
+    so, co = causal_join(sa.to_obj(), ca.to_obj(), sb.to_obj(), cb.to_obj())
+    oracle_s = time.perf_counter() - t0
+    if got[0].to_obj() != so or got[1].to_obj() != co:
+        raise AssertionError("1M-dot join differs from the frozenset oracle")
+    log(f"dots: 1M-dot join on the card mask: {launches} mask launches, "
+        f"staged {moved['h2d_bytes']} B, fetched {moved['d2h_bytes']} B; "
+        f"bit-identical to numpy; equal to the frozenset oracle "
+        f"({oracle_s:.3f} s)")
+
+    # host-clocked joins on each path, and the mask's part of them
+    inner, spent = dotcols.missing_mask, []
+
+    def timed_mask(*args, **kw):
+        t = time.perf_counter()
+        out = inner(*args, **kw)
+        spent.append(time.perf_counter() - t)
+        return out
+
+    paths = (("card", dev), ("numpy", "cpu"))
+    times = {path: [] for path, _ in paths}
+    masks = {path: [] for path, _ in paths}
+    dotcols.missing_mask = timed_mask
+    try:
+        for rep in range(JOIN_REPEATS + 1):          # in turns; 0 warms up
+            for path, where in paths:
+                spent.clear()
+                with dotcols.mask_device(where):
+                    t = _host_times(lambda: dotcols.causal_join_cols(
+                        sa, ca, sb, cb), 1)[0]
+                if rep:
+                    times[path].append(t)
+                    masks[path].append(sum(spent))
+    finally:
+        dotcols.missing_mask = inner
+    join = {}
+    for path, ts in times.items():
+        join[path] = {"median_s": float(np.median(ts)), "min_s": min(ts),
+                      "max_s": max(ts),
+                      "mask_median_s": float(np.median(masks[path])),
+                      "mask_share": sum(masks[path]) / sum(ts)}
+        log(f"dots: join ({path} mask) over {JOIN_REPEATS} runs in turns: "
+            + " ".join(f"{k}={v:.5f}" for k, v in join[path].items()))
+
+    scaling = mask_scaling(dev)
+
+    dotcols.launches["missing_mask"] = 0
+    with dotcols.mask_device(dev):
+        rec = reconnect(**RECONNECT)
+    rec["mask_launches"] = dotcols.launches["missing_mask"]
+    pull = rec["request_bytes"] + rec["response_bytes"]
+    rec["share"] = pull / rec["full_state_bytes"]
+    log("dots: reconnect " + " ".join(
+        f"{k}={v:.5f}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in rec.items()))
+    want_bytes = (RECONNECT_REQUEST_BYTES, RECONNECT_RESPONSE_BYTES,
+                  RECONNECT_FULL_STATE_BYTES)
+    if not rec["converged"]:
+        raise AssertionError("per-dot reconnect did not converge")
+    if (rec["request_bytes"], rec["response_bytes"],
+            rec["full_state_bytes"]) != want_bytes:
+        raise AssertionError(f"reconnect bytes differ from the reference's "
+                             f"{want_bytes}")
+    if not 0 < pull <= RECONNECT_MAX_SHARE * rec["full_state_bytes"]:
+        raise AssertionError(f"reconnect pull {pull} B is above "
+                             f"{RECONNECT_MAX_SHARE} of full state")
+    if rec["mask_launches"] < 1:
+        raise AssertionError("the reconnect launched no mask on the card")
+    return {"join_dots": total, "join_mask_launches": launches,
+            "join_staged_bytes": moved["h2d_bytes"],
+            "oracle_s": oracle_s, "join": join, "mask": scaling,
+            "reconnect": rec}
+
+
+# ---------------------------------------------------------------------------
+# 7. Serve path
 # ---------------------------------------------------------------------------
 
 def _logit_checks(served, plain, tol_rel, what) -> dict:
@@ -981,7 +1304,8 @@ def serve_path(dev) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.launch.serve import generate, make_prompt
+    from repro_torch.launch.serve import (generate, make_prompt,
+                                          replicate_sessions)
     from repro_torch.models import init_model
 
     launches = {"flash_attention": 0, "flash_decode": 0}
@@ -1026,6 +1350,8 @@ def serve_path(dev) -> dict:
             f"decode_tok_per_s={rec['decode_tok_per_s']:.1f} "
             f"launches={got} routes={dict(fa.routes)}; req 0: "
             f"{run.tokens[0].tolist()}")
+        if arch == SERVE[0][0]:
+            rec["sessions"] = session_table(replicate_sessions, b, dev)
 
         plain_cfg = dataclasses.replace(cfg, attn_impl="naive")
         plain = generate(plain_cfg, params, prompt, gen, keep_logits=True,
@@ -1036,6 +1362,8 @@ def serve_path(dev) -> dict:
             f"prefill_s={plain.prefill_s:.4f} decode_s={plain.decode_s:.4f}")
         rec.update(_logit_checks(run, plain, SERVE_LOGIT_TOL,
                                  f"serve {arch} chunked vs naive"))
+        rec["repeated"] = serve_repeats(arch, cfg, plain_cfg, params, prompt,
+                                        b, prompt_len, gen)
         rec["decode_step"] = decode_breakdown(cfg, params, prompt, gen)
         rec["prefill_step"] = prefill_breakdown(cfg, params, prompt, gen)
         out[arch] = rec
@@ -1067,6 +1395,50 @@ def serve_path(dev) -> dict:
         "same tokens")
     out["f32_depth2_max_gap"] = worst
     return {"launches": launches, "timings": out}
+
+
+def session_table(replicate, b, dev) -> dict:
+    """The served batch's session table over ``SESSION_GATEWAYS``
+    gateways through ``serve --replicate``'s code path, on the card's
+    process: every status must read ``"done"``."""
+    t0 = time.perf_counter()
+    statuses, frame_bytes = replicate(b, SESSION_GATEWAYS, "bp+rr", SEED,
+                                      True, dev)
+    wall = time.perf_counter() - t0
+    log(f"  [δ-CRDT] session table replicated over {SESSION_GATEWAYS} "
+        f"gateways (25% loss, policy=bp+rr, frame_bytes={frame_bytes}): "
+        f"{statuses} ({wall:.3f} s)")
+    if len(statuses) != b or any(v != "done" for v in statuses.values()):
+        raise AssertionError(f"session table not all done: {statuses}")
+    return {"frame_bytes": frame_bytes, "wall_s": wall}
+
+
+def serve_repeats(arch, cfg, plain_cfg, params, prompt, b, prompt_len,
+                  gen) -> dict:
+    """``SERVE_REPEATS`` host-clocked runs of each attention path, in
+    turns (chunked, naive, chunked, …) in this one process: medians with
+    their spread (min, max)."""
+    from repro_torch.launch.serve import generate
+
+    runs = {"chunked": [], "naive": []}
+    for _ in range(SERVE_REPEATS):
+        for impl, c in (("chunked", cfg), ("naive", plain_cfg)):
+            r = generate(c, params, prompt, gen)
+            runs[impl].append((r.prefill_s, b * (gen - 1) / r.decode_s))
+    out = {}
+    for impl, rs in runs.items():
+        pre = [p for p, _ in rs]
+        tok = [t for _, t in rs]
+        out[impl] = {"prefill_s": float(np.median(pre)),
+                     "prefill_s_min": min(pre), "prefill_s_max": max(pre),
+                     "prefill_tok_per_s": b * prompt_len / float(
+                         np.median(pre)),
+                     "decode_tok_per_s": float(np.median(tok)),
+                     "decode_tok_per_s_min": min(tok),
+                     "decode_tok_per_s_max": max(tok)}
+        log(f"serve {arch} ({impl}, card, median of {SERVE_REPEATS}): "
+            + " ".join(f"{k}={v:.4f}" for k, v in out[impl].items()))
+    return out
 
 
 def _leaves(tree):
@@ -1118,6 +1490,8 @@ def main() -> int:
     topk_check(a, dev)
     del reps, a, b, joined
     torch.cuda.empty_cache()
+
+    timings["dots"] = dots_path(dev)
 
     served = serve_path(dev)
     launches.update(served["launches"])

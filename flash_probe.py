@@ -135,9 +135,10 @@ def decode_call(lib, q, k, v, qpos, kpos, o, tps=None):
     b, h, _, hd = q.shape
     kv, C = k.shape[1], k.shape[2]
     tile = fa.decode_tile(hd, q.element_size())
-    splits, per = fa.decode_splits(b, kv, C, tile)
+    sms = fa.sm_count(q.device)
+    splits, per = fa.decode_splits(b, kv, C, tile, sms)
     if tps is None:
-        tps = fa.decode_threads_per_slot(h // kv, hd, splits * kv * b)
+        tps = fa.decode_threads_per_slot(h // kv, hd, splits * kv * b, sms)
     n = b * h * splits
     part = torch.empty(-(-n * hd // 4) * 4 + 2 * n, dtype=torch.float32,
                        device=q.device)
@@ -223,9 +224,11 @@ def main() -> int:
         q = torch.randn((b, h, 1, hd), generator=gen, device=dev).to(dtype)
         qpos = torch.full((b, 1), filled, dtype=torch.int32, device=dev)
         o = torch.empty_like(q)
-        splits, _ = fa.decode_splits(b, kv, C, fa.decode_tile(hd, 2))
-        row = [f"blocks={splits * kv * b} rule="
-               f"{fa.decode_threads_per_slot(h // kv, hd, splits * kv * b)}"]
+        sms = fa.sm_count(q.device)
+        splits, _ = fa.decode_splits(b, kv, C, fa.decode_tile(hd, 2), sms)
+        blocks = splits * kv * b
+        row = [f"blocks={blocks} rule="
+               f"{fa.decode_threads_per_slot(h // kv, hd, blocks, sms)}"]
         for tps in (1, 4):
             call = decode_call(libs["full"], q, k, v, qpos, kpos, o, tps)
             call()

@@ -1,5 +1,5 @@
-"""Carry state across as plain numpy data: tensor stores, model
-parameters and KV caches.
+"""Carry state across as plain numpy data: tensor stores, causal dot
+stores, model parameters and KV caches.
 
 Model parameters and caches are pytrees (nested dicts and lists) of numpy
 arrays with the JAX package's layout — ``init_model``'s params (layer
@@ -17,6 +17,13 @@ The plain form of a store is ``(entries, life)``:
   sorted chunk positions of the rows).
 * ``life`` — ``[(key, (epoch, expiry))]``, the lifecycle table.
 
+The plain form of a causal dot store is the JAX package's columnar
+fields (``repro.core.dotcols``): a sorted replica-id table ``rids``, the
+packed int64 dot column ``dots`` (``rid_index << 48 | seq``), the
+context's dense ``vv`` column and sorted ``cloud`` column, and for a map
+the key table and per-key group ``offsets``; ``vals`` are plain Python
+objects aligned with ``dots``.
+
 bf16 values travel as 2-byte void arrays (view them as
 ``ml_dtypes.bfloat16``, or pass such an array in: any 2-byte non-float
 dtype is read as bfloat16).
@@ -28,6 +35,8 @@ from typing import Any, Callable, Dict, Iterable, Mapping, Tuple
 
 import numpy as np
 
+from .core.dotcols import (SHAPE_FUN, SHAPE_SET, CausalContextCols,
+                           DotFunCols, DotMapCols, DotSetCols)
 from .core.store import LatticeStore
 from .core.tensor_lattice import (ChunkedTensor, TensorState, sparse_chunks)
 from .dtypes import BF16_NP, to_numpy, to_torch
@@ -78,6 +87,38 @@ def store_to_numpy(store: LatticeStore) -> Tuple[dict, list]:
                                  None)
         entries[key] = (tensors, val.lamport)
     return entries, list(store.life)
+
+
+def dotstore_from_numpy(rids, dots, vv, cloud=(), *, vals=None, keys=None,
+                        offsets=None):
+    """The port's columnar ``(store, ctx)`` from the plain fields (see the
+    module docstring): a ``DotSetCols`` when there are neither ``vals``
+    nor ``keys``, a ``DotFunCols`` with ``vals``, a ``DotMapCols`` with
+    ``keys`` and ``offsets`` whose groups are all DotFuns with ``vals``
+    and all DotSets without. Columns are copied into int64 arrays; wrap
+    the pair in a causal CRDT type, e.g.
+    ``ORMap(*dotstore_from_numpy(...))``."""
+    rids = tuple(rids)
+    dots = np.array(dots, dtype=np.int64)
+    ctx = CausalContextCols(rids, np.array(vv, dtype=np.int64),
+                            np.array(cloud, dtype=np.int64))
+    col = None
+    if vals is not None or keys is not None:
+        col = np.empty(dots.size, object)
+        if isinstance(vals, np.ndarray) and vals.dtype != object:
+            col[:] = vals                  # numbers, as Python objects
+        elif vals is not None:
+            for j, v in enumerate(vals):   # tuples stay one element each
+                col[j] = v
+    if keys is None:
+        store = (DotSetCols(rids, dots) if col is None
+                 else DotFunCols(rids, dots, col))
+    else:
+        keys = tuple(keys)
+        shape = SHAPE_SET if vals is None else SHAPE_FUN
+        store = DotMapCols(rids, keys, bytes([shape]) * len(keys),
+                           np.array(offsets, dtype=np.int64), dots, col)
+    return store, ctx
 
 
 def _tree_map(fn: Callable, tree: Any) -> Any:

@@ -1,5 +1,12 @@
 """δ-CRDT core over torch tensors — the port of the JAX package's core.
 
+* ``dots``           — dots, compressed causal contexts (§7.2), dot stores,
+                       the generic causal join of Figs. 3b/4.
+* ``dotcols``        — the same dot stores and contexts as packed int64
+                       columns; the containment mask of every columnar
+                       causal join runs on the card for large columns.
+* ``crdts``          — the datatype catalogue (counters, sets, OR-Sets,
+                       registers, flags, ORMap).
 * ``tensor_lattice`` — the versioned chunk store ``TensorState``.
 * ``store``          — the keyed store ``LatticeStore`` and its batched,
                        stacked, patched and resident join fast paths.
@@ -8,10 +15,13 @@
 * ``antientropy``    — Algorithms 1 and 2 over the engine.
 * ``sim``            — the §2 network model as a discrete-event simulator.
 
-The CRDT catalogue, dot stores and hierarchical gossip arrive with later
-slices.
+Hierarchical gossip arrives with a later slice.
 """
 
+from .dots import CausalContext, Dot, DotFun, DotMap, DotSet, causal_join
+from .crdts import (ALL_CRDT_TYPES, AWORSet, AWORSetTombstone, DWFlag,
+                    DeltaCRDT, EWFlag, GCounter, GSet, LWWRegister, LWWSet,
+                    MVRegister, ORMap, PNCounter, RWORSet, TwoPSet)
 from .tensor_lattice import ChunkedTensor, SparseChunks, TensorState
 from .store import LatticeStore, digest_select_store
 from .digest import StoreDigest, digest_diff, opaque_hash, store_digest
@@ -25,6 +35,10 @@ from .antientropy import (BasicNode, CausalNode, FullStateNode, converged,
 from .sim import NetConfig, NetStats, Node, Simulator, structural_size
 
 __all__ = [
+    "CausalContext", "Dot", "DotFun", "DotMap", "DotSet", "causal_join",
+    "ALL_CRDT_TYPES", "AWORSet", "AWORSetTombstone", "DWFlag", "DeltaCRDT",
+    "EWFlag", "GCounter", "GSet", "LWWRegister", "LWWSet", "MVRegister",
+    "ORMap", "PNCounter", "RWORSet", "TwoPSet",
     "ChunkedTensor", "SparseChunks", "TensorState",
     "LatticeStore", "digest_select_store",
     "StoreDigest", "digest_diff", "opaque_hash", "store_digest",

@@ -64,6 +64,9 @@ import numpy as np
 
 from ..dtypes import to_numpy
 from ..lifecycle.lattice import LIFE_BOTTOM, Life
+from . import dotcols
+from .crdts import CAUSAL_WIRE_TYPES
+from .dots import CausalContext, DotFun, DotMap, DotSet
 from .store import LatticeStore
 from .tensor_lattice import (TensorState, dense_versions, live_rows,
                              sparse_chunks)
@@ -109,8 +112,11 @@ def opaque_hash(value: Any) -> bytes:
 class StoreDigest:
     """Compact 'what I hold' summary of a store (see module docstring).
 
-    ``causal`` is the per-dot section of causal dot stores; it stays
-    empty until the dot-store slice of the port (slice B) lands."""
+    ``causal`` is the per-dot section: per key holding a causal dot
+    store, a :class:`~repro_torch.core.dotcols.CausalDigest` (vv + cloud
+    summary plus the flat store dot column) — enough for a responder to
+    compute the *exact* missing-dot response instead of re-shipping the
+    value whenever a content hash mismatches."""
 
     tensors: Dict[Tuple[str, str], np.ndarray] = field(default_factory=dict)
     opaque: Dict[str, bytes] = field(default_factory=dict)
@@ -135,17 +141,6 @@ class StoreDigest:
                 f"{len(self.opaque)} opaque keys, "
                 f"{len(self.causal)} causal keys, "
                 f"{len(self.life)} life keys)")
-
-
-# the causal dot-store types the JAX package digests per dot; the port
-# holds none of them until the dot-store slice (slice B) lands
-CAUSAL_TYPE_NAMES = frozenset({"AWORSet", "RWORSet", "MVRegister", "EWFlag",
-                               "DWFlag", "ORMap"})
-
-
-def _dotstore_unported(what: str):
-    return NotImplementedError(
-        f"{what}: causal dot-store digests arrive with slice B of the port")
 
 
 def store_digest(store: LatticeStore) -> StoreDigest:
@@ -174,8 +169,12 @@ def store_digest(store: LatticeStore) -> StoreDigest:
                     out.tensors[(key, name)] = vers_col[span[0]:span[1]]
                 else:
                     out.tensors[(key, name)] = dense_versions(ct)
-        elif type(val).__name__ in CAUSAL_TYPE_NAMES:
-            raise _dotstore_unported(f"store_digest of key {key!r}")
+        elif isinstance(val, CAUSAL_WIRE_TYPES):
+            g = dotcols.causal_digest_of(val)
+            if g is not None:
+                out.causal[key] = g
+            else:                     # nested-map shape: hash like opaque
+                out.opaque[key] = opaque_hash(val)
         else:
             out.opaque[key] = opaque_hash(val)
     out.life.update(store.life)
@@ -203,12 +202,63 @@ def life_diff(life, shipped_keys, known_life) -> list:
     return sorted(out)
 
 
+def _causal_diff_obj(value, g):
+    """Set-based reference implementation of the per-dot digest response
+    (:func:`~repro_torch.core.dotcols.causal_diff_cols` is the columnar
+    twin that :func:`digest_diff` and the wire encoder use; the tests
+    hold the two equal). Computes
+
+        s_ship = {d ∈ s_resp | d ∉ c_req}
+        c_ship = {d ∈ g.dots | d ∈ c_resp, d ∉ s_resp} ∪ (c_resp \\ c_req)
+
+    directly with Python sets over the object representation. Joining
+    ``(s_ship, c_ship)`` at the requester reproduces the join of the
+    responder's full state exactly (DESIGN.md §9), and ``s_ship`` never
+    carries a dot the requester's context contains. Returns None when
+    the requester lacks nothing."""
+    val = dotcols.value_to_obj(value)
+    store, ctx = val.store, val.ctx
+    gvv = {g.rids[j]: int(n) for j, n in enumerate(g.vvcol) if n}
+    gcloud = dotcols._unpack(g.rids, g.cloudcol)
+    gdots = dotcols._unpack(g.rids, g.dotcol)
+
+    def req_has(d):
+        return d[1] <= gvv.get(d[0], 0) or d in gcloud
+
+    s_all = store.all_dots()
+    new = {d for d in s_all if not req_has(d)}
+    removed = {d for d in gdots if ctx.contains(d) and d not in s_all}
+    extras = set()
+    for i, n in ctx.vv:
+        for k in range(gvv.get(i, 0) + 1, n + 1):
+            if (i, k) not in gcloud:
+                extras.add((i, k))
+    for d in ctx.cloud:
+        if not req_has(d):
+            extras.add(d)
+    cship = removed | extras
+    if not new and not cship:
+        return None
+
+    def filt(s):
+        if isinstance(s, DotSet):
+            return DotSet(frozenset(s.dots & new))
+        if isinstance(s, DotFun):
+            return DotFun(tuple((d, v) for d, v in s.entries if d in new))
+        return DotMap(tuple((k, f) for k, sub in s.entries
+                            if not (f := filt(sub)).is_bottom()))
+
+    return type(val)(filt(store), CausalContext.from_dots(cship))
+
+
 def digest_diff(store: LatticeStore, digest: StoreDigest) -> LatticeStore:
     """The sub-delta of ``store`` that ``digest``'s owner provably lacks:
     per tensor, only the chunk rows whose version strictly exceeds the
     digest's version at that position (as sparse row sets); per opaque
-    key, the whole value iff its content hash differs; keys absent from
-    the digest ship wholesale. Lifecycle-aware: life entries ship iff
+    key, the whole value iff its content hash differs; per causal key,
+    the exact missing-dot sub-delta (:func:`~repro_torch.core.dotcols.
+    causal_diff_cols`); keys absent from the digest ship wholesale.
+    Lifecycle-aware: life entries ship iff
     strictly above the digest's (tombstones and expiry extensions
     propagate through pull), a key whose digest epoch *exceeds* the
     responder's ships nothing (the requester's tombstone absorbs it),
@@ -216,8 +266,6 @@ def digest_diff(store: LatticeStore, digest: StoreDigest) -> LatticeStore:
     an epoch-0 version column must never suppress epoch-1 rows. Always
     ≤ ``store``, and join-equivalent to it for the digest's owner
     (module docstring)."""
-    if digest.causal:
-        raise _dotstore_unported("digest_diff")
     la = dict(store.life)
     out: Dict[str, Any] = {}
     for key, val in store.entries:
@@ -226,6 +274,17 @@ def digest_diff(store: LatticeStore, digest: StoreDigest) -> LatticeStore:
         if q_epoch > epoch:
             continue                 # requester's incarnation dominates
         same_epoch = q_epoch == epoch
+        if isinstance(val, CAUSAL_WIRE_TYPES):
+            g = digest.causal.get(key) if same_epoch else None
+            if g is None:
+                out[key] = val        # requester lacks the key: whole
+            else:
+                d = (dotcols.causal_diff_cols(val, g)
+                     if dotcols.value_to_cols(val) is not None
+                     else _causal_diff_obj(val, g))   # nested maps
+                if d is not None:
+                    out[key] = d      # exact missing-dot sub-delta
+            continue
         if not isinstance(val, TensorState):
             h = digest.opaque.get(key) if same_epoch else None
             if h is None or h != opaque_hash(val):

@@ -29,11 +29,13 @@ version in ``ref``. ``launches`` counts kernel launches by name and
 Prefill takes one of two kernels by one rule of dtype and head_dim
 (:func:`prefill_route`): bf16 or f16 at head_dim 64 or 128 runs on the
 tensor cores (``"tc"``: ``wgmma``, which also needs 16-byte aligned bases
-and (batch, head, seq) strides that are multiples of 8 elements, or the
-wrapper raises); f32 and every other head_dim run on the CUDA cores
-(``"simt"``). Decode splits the cache into :func:`decode_splits` ranges,
-one block per (range, KV head, row), scores each slot with
-:func:`decode_threads_per_slot` threads and merges the ranges in order.
+and (batch, head, seq) strides that are multiples of 8 elements; operands
+that are not so aligned take the CUDA-core kernel); f32 and every other
+head_dim run on the CUDA cores (``"simt"``). Decode splits the cache into
+:func:`decode_splits` ranges, one block per (range, KV head, row), scores
+each slot with :func:`decode_threads_per_slot` threads and merges the
+ranges in order. Both rules take the card's SM count (the wrapper reads
+it from the device; the default is an H100 SXM's 132).
 """
 
 from __future__ import annotations
@@ -72,7 +74,8 @@ def reset_launches() -> None:
 def prefill_route(dtype: torch.dtype, hd: int) -> str:
     """The prefill kernel for ``dtype`` and head_dim ``hd``: ``"tc"``
     (tensor cores) for bf16 / f16 at head_dim 64 or 128, else ``"simt"``
-    (f32 FMA on the CUDA cores)."""
+    (f32 FMA on the CUDA cores). The wrapper also sends ``"tc"`` operands
+    that are not 16-byte aligned (:func:`_aligned16`) to ``"simt"``."""
     return "tc" if dtype in TC_DTYPES and hd in TC_HEAD_DIMS else "simt"
 
 
@@ -89,24 +92,33 @@ def decode_tile(hd: int, elem: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def decode_splits(b: int, kv: int, C: int, tile: int) -> Tuple[int, int]:
+def decode_splits(b: int, kv: int, C: int, tile: int,
+                  sms: int = SMS) -> Tuple[int, int]:
     """``(splits, slots per split)`` of the decode grid (splits, kv, b):
-    two blocks per SM (the split count rounded up to a power of two) where
-    the cache allows, each split a whole number of ``tile``-slot tiles
-    (rounded down, at least one); only the last split is short."""
-    want = 1 << (-(-2 * SMS // max(1, b * kv)) - 1).bit_length()
+    two blocks per SM of ``sms`` (the split count rounded up to a power
+    of two) where the cache allows, each split a whole number of
+    ``tile``-slot tiles (rounded down, at least one); only the last split
+    is short."""
+    want = 1 << (-(-2 * sms // max(1, b * kv)) - 1).bit_length()
     n = max(1, min(want, -(-C // tile)))
     per = max(1, -(-C // n) // tile) * tile
     return max(1, -(-C // per)), per
 
 
-def decode_threads_per_slot(group: int, hd: int, blocks: int) -> int:
+def decode_threads_per_slot(group: int, hd: int, blocks: int,
+                            sms: int = SMS) -> int:
     """Threads that score one cache slot in a decode block: 4 when its
     ``group`` query heads' dots are long (``group >= 3`` and
     ``group * hd >= 512``) and the grid's ``blocks`` leave SMs idle (fewer
-    than ``SMS``), so each block's work is spread over 512 threads; else
+    than ``sms``), so each block's work is spread over 512 threads; else
     1 (128 threads a block, several blocks an SM)."""
-    return 4 if group >= 3 and group * hd >= 512 and blocks < SMS else 1
+    return 4 if group >= 3 and group * hd >= 512 and blocks < sms else 1
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the card ``device`` names."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _aligned16(*tensors: torch.Tensor) -> bool:
@@ -173,8 +185,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Causal attention. q [b, h, sq, hd]; k, v [b, kv, sk, hd]; returns
     [b, h, sq, hd] in q's dtype and memory order. On the card the kernel
     is :func:`prefill_route`'s: bf16 / f16 at head_dim 64 or 128 on the
-    tensor cores (16-byte aligned operands, else ValueError), everything
-    else on the CUDA cores."""
+    tensor cores when the operands are 16-byte aligned, everything else
+    on the CUDA cores."""
     _check_qkv(q, k, v)
     b, h, sq, hd = q.shape
     scale_, window_, softcap_ = _options(hd, scale, window, softcap)
@@ -185,9 +197,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.empty_like(q)      # q's memory order (its hd is contiguous)
     route = prefill_route(q.dtype, hd)
     if route == "tc" and not _aligned16(q, k, v, o):
-        raise ValueError("the tensor-core prefill needs 16-byte aligned "
-                         "q, k, v and (batch, head, seq) strides that are "
-                         "multiples of 8 elements")
+        route = "simt"           # wgmma's copies need 16-byte alignment
     kv, sk = k.shape[1], k.shape[2]
     if b and sq and h:
         lib = library("flash_attention")
@@ -230,7 +240,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b and h:
         kv = k.shape[1]
         tile = decode_tile(hd, q.element_size())
-        splits, per = decode_splits(b, kv, C, tile)
+        sms = sm_count(q.device)
+        splits, per = decode_splits(b, kv, C, tile, sms)
         stream = _stream(q)
         # f32 partials of every split and query head: acc[hd], then
         # (from a multiple of four floats) m and l
@@ -242,7 +253,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             k_pos.data_ptr(), o.data_ptr(), part.data_ptr(),
             _decode_counters(q.device, stream, b * kv).data_ptr(), b, h, kv,
             C, hd, splits, per, tile,
-            decode_threads_per_slot(h // kv, hd, splits * kv * b),
+            decode_threads_per_slot(h // kv, hd, splits * kv * b, sms),
             int(_aligned16(k, v)),
             *q.stride()[:2], *k.stride()[:3], *v.stride()[:3],
             q_pos.stride(0), *k_pos.stride(), *o.stride()[:2], scale_,

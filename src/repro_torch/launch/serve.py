@@ -13,21 +13,28 @@ attention through the hand-written flash kernels on the card;
 ``CONFIG`` instead of the ``REDUCED`` one that the JAX package's
 serve.py always takes.
 
-Not ported yet: the session-table gossip (``--replicate``,
-``--sessions``; it needs ORMap, MVRegister and the causal dot stores of
-slice B) and socket mode (``--listen``/``--peers``; ``repro_torch.net``,
-slice C). Those options exit with an error naming the slice; the options
-that only shape them are accepted, as the JAX package's serve.py accepts
-them.
+``--replicate N`` then replicates the batch's session table as an
+``ORMap(request → MVRegister status)`` over N causal gateway replicas on
+a lossy simulated network (25% loss, 10% duplication), under
+``--ship-policy`` and through the binary wire codec (``--no-wire``:
+Python objects), as the JAX package's serve.py does; the causal joins'
+containment mask runs on ``--device``.
 
-:func:`make_prompt` and :func:`generate` are the model part, which
-``chip_smoke.py`` drives at full width.
+Not ported yet: keyed sessions (``--sessions``; it needs the key
+ownership of ``repro.sync`` and the lifecycle reaper, slice C) and socket
+mode (``--listen``/``--peers``; ``repro_torch.net``, slice C). Those
+options exit with an error naming the slice; the options that only shape
+them are accepted, as the JAX package's serve.py accepts them.
+
+:func:`make_prompt`, :func:`generate` and :func:`replicate_sessions` are
+the parts ``chip_smoke.py`` drives at full width.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import random
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -35,6 +42,10 @@ import numpy as np
 import torch
 
 from ..configs import ARCH_IDS, get_config
+from ..core import (MVRegister, NetConfig, ORMap, POLICY_SPECS, Replica,
+                    Simulator, causal_policy_spec, make_policy,
+                    run_to_convergence)
+from ..core.dotcols import mask_device
 from ..models import decode_step, init_model, prefill
 from ..models.config import ModelConfig
 from ..models.transformer import compute_dtype
@@ -130,6 +141,46 @@ def generate(cfg: ModelConfig, params: Dict, prompt: Dict[str, torch.Tensor],
                     prefill_s, decode_s)
 
 
+def replicate_sessions(n_requests: int, n_gateways: int, policy: str,
+                       seed: int, wire: bool = True, device="cuda"
+                       ) -> Tuple[Dict[str, str], int]:
+    """The session table of ``n_requests`` served requests as
+    ``ORMap(request → MVRegister status)`` over ``n_gateways`` causal
+    replicas under ``policy``, gossiped over a 25%-loss simulated network
+    until they converge (the JAX package's ``_replicated_sessions``).
+    Each request's owning gateway writes its statuses in order. Returns
+    the converged table ``{request: status}`` and the payload traffic
+    (frame bytes with ``wire``, else structural atoms)."""
+    from ..wire import WireCodec
+    codec = WireCodec() if wire else None
+    sim = Simulator(NetConfig(loss=0.25, dup=0.1, seed=seed))
+    ids = [f"gw{k}" for k in range(n_gateways)]
+    with mask_device(device):
+        nodes = [sim.add_node(Replica(
+            i, ORMap.bottom(), [j for j in ids if j != i], causal=True,
+            policy=make_policy(policy), rng=random.Random(seed + k),
+            wire=codec)) for k, i in enumerate(ids)]
+        for r in range(n_requests):
+            gw = nodes[r % len(nodes)]   # each request owned by one gateway
+            for status in ("queued", "prefilling", "decoding", "done"):
+                # sequential writes per key: MVRegister holds one value
+                gw.operation(lambda X, r=r, s=status, gw=gw: X.apply_delta(
+                    gw.id, f"req{r}", MVRegister, "write_delta", s))
+            sim.run_for(0.5)
+        run_to_convergence(sim, nodes, interval=1.0)   # raises if not
+    table = nodes[0].X
+    statuses = {k: next(iter(table.get_value(k, MVRegister).read()))
+                for k in sorted(table.keys())}
+    return statuses, sim.stats.payload_atoms()
+
+
+def _policy_spec(s: str) -> str:
+    try:                 # fail at arg parsing, not after the model ran
+        return causal_policy_spec(s, "the session-table gossip")
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(str(e))
+
+
 def _slice_error(flag: str, slice_: str, needs: str) -> str:
     return (f"{flag} is not ported yet: it needs {needs} (ROADMAP "
             f"{slice_}); run it with the JAX package's repro.launch.serve")
@@ -151,16 +202,20 @@ def main(argv: Optional[List[str]] = None) -> None:
                          "on the CPU); naive: plain products")
     ap.add_argument("--full", action="store_true",
                     help="serve the published CONFIG instead of REDUCED")
+    ap.add_argument("--replicate", type=int, default=0,
+                    help="N gateway replicas for the δ-CRDT session table")
+    ap.add_argument("--ship-policy", default="bp+rr", type=_policy_spec,
+                    help="shipping policy for --replicate gossip (e.g. "
+                         f"{', '.join(POLICY_SPECS)}, bp+rr+digest-sync:8)")
+    ap.add_argument("--no-wire", dest="wire", action="store_false",
+                    help="gossip Python objects instead of binary frames")
     gossip = ap.add_argument_group(
-        "session gossip and socket mode (not ported yet: slices B and C)")
-    gossip.add_argument("--replicate", type=int, default=0)
+        "keyed sessions and socket mode (not ported yet: slice C)")
     gossip.add_argument("--sessions", type=int, default=0)
     gossip.add_argument("--listen", default=None)
     gossip.add_argument("--peers", default=None)
-    gossip.add_argument("--ship-policy", default="bp+rr")
     gossip.add_argument("--session-replication", type=int, default=2)
     gossip.add_argument("--session-ttl", type=float, default=None)
-    gossip.add_argument("--no-wire", dest="wire", action="store_false")
     gossip.add_argument("--transport", default="udp", choices=("udp", "tcp"))
     gossip.add_argument("--udp-loss", type=float, default=0.0)
     gossip.add_argument("--tick", type=float, default=0.1)
@@ -172,11 +227,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.listen or args.peers:
         ap.error(_slice_error("socket mode (--listen/--peers)", "slice C",
                               "the port of repro.net"))
-    for flag, value in (("--replicate", args.replicate),
-                        ("--sessions", args.sessions)):
-        if value:
-            ap.error(_slice_error(flag, "slice B", "ORMap, MVRegister and "
-                                  "the causal dot stores"))
+    if args.sessions:
+        ap.error(_slice_error("--sessions", "slice C", "the key ownership "
+                              "of repro.sync and the lifecycle reaper"))
     try:
         cfg = get_config(args.arch, reduced=not args.full)
     except NotImplementedError as e:
@@ -199,6 +252,16 @@ def main(argv: Optional[List[str]] = None) -> None:
           f"attn_impl={cfg.attn_impl})")
     print(f"  sample continuation (req 0): "
           f"{[int(t) for t in run.tokens[0, :8]]}")
+    if args.replicate:
+        statuses, payload = replicate_sessions(
+            b, args.replicate, args.ship_policy, args.seed, args.wire,
+            device)
+        unit = "frame_bytes" if args.wire else "payload_atoms"
+        print(f"  [δ-CRDT] session table replicated over {args.replicate} "
+              f"gateways (25% loss, policy={args.ship_policy}, "
+              f"{unit}={payload}): {statuses}")
+        if any(v != "done" for v in statuses.values()):
+            raise RuntimeError(f"session statuses not all done: {statuses}")
 
 
 if __name__ == "__main__":

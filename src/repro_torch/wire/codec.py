@@ -12,9 +12,16 @@ packs into one contiguous byte payload:
 * A columnar index maps rows back to tensors: a key table, a tensor
   descriptor table ``(key, name, n_chunks)``, and per group a
   ``(descriptor, row-count)`` run-length list.
-* Other lattice values ride as tagged opaque pickle bodies per key.
-  Causal dot-store bodies are part of the format but arrive with the
-  dot-store slice of the port (slice B): encoding or decoding one raises.
+* Causal dot-store lattices (AWORSet, RWORSet, MVRegister, flags, flat
+  ORMaps) ride as **dot-column bodies**: a rid table, the causal
+  context's dense vv column + sorted cloud column, and the store's packed
+  int64 dot column (plus key table and group offsets for maps), decoded
+  zero-copy into the :mod:`repro_torch.core.dotcols` columns. Keys and
+  values are pickled tuples of plain Python objects, so these bodies are
+  byte-identical to the JAX package's.
+* Other lattice values (counters, nested maps, …) ride as tagged opaque
+  pickle bodies per key. A pickle names the value's class and module, so
+  opaque bodies differ between the two packages by design.
 * Per-key lifecycle state rides in a trailing life table.
 * Each signature group's columns may be zlib-deflated behind a per-group
   flag byte (``compress=True``).
@@ -37,8 +44,11 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 
-from ..core.digest import (CAUSAL_TYPE_NAMES, StoreDigest, life_diff,
-                           opaque_hash)
+from ..core import dotcols
+from ..core.crdts import CAUSAL_WIRE_TYPES
+from ..core.digest import StoreDigest, life_diff, opaque_hash
+from ..core.dotcols import (CausalContextCols, CausalDigest, DotFunCols,
+                            DotMapCols, DotSetCols)
 from ..core.store import LatticeStore
 from ..core.tensor_lattice import SparseChunks, TensorState, live_rows
 from ..dtypes import to_torch
@@ -53,6 +63,7 @@ _LIFE = struct.Struct("<Id")     # (epoch u32, expiry f64) per life entry
 
 _KIND_TENSOR = 0
 _KIND_OPAQUE = 1
+_KIND_DOTSTORE = 2               # causal CRDT on dot-column encoding
 
 # payload tags for encode_value/decode_value
 _TAG_STORE = 0
@@ -60,11 +71,6 @@ _TAG_TENSORSTATE = 1
 _TAG_OPAQUE = 2
 
 _SINGLE = "\x00single"    # wrapper key for bare-TensorState payloads
-
-
-def _dotstore_unported(what: str):
-    return NotImplementedError(
-        f"{what}: causal dot-store bodies arrive with slice B of the port")
 
 
 def _pad8(buf: bytearray) -> None:
@@ -126,21 +132,35 @@ class _Cursor:
         return arr.reshape(shape) if shape is not None else arr
 
 
+def _causal_wire_value(val):
+    """(type-id, columnar value) when ``val`` takes the dot-column
+    encoding; None otherwise (non-causal lattices, or store shapes the
+    columnar form does not model — those stay on the opaque path)."""
+    for tid, cls in enumerate(CAUSAL_WIRE_TYPES):
+        if type(val) is cls:
+            cv = dotcols.value_to_cols(val)
+            return None if cv is None else (tid, cv)
+    return None
+
+
 def encode_store(store: LatticeStore,
                  known_versions: Optional[Mapping[Tuple[str, str],
                                                   np.ndarray]] = None,
                  known_opaque: Optional[Mapping[str, bytes]] = None,
                  known_life: Optional[Mapping[str, Life]] = None,
-                 known_causal: Optional[Mapping[str, Any]] = None,
+                 known_causal: Optional[Mapping[str, CausalDigest]] = None,
                  compress: bool = False) -> bytes:
     """Pack a whole store delta into one stacked, columnar byte payload.
 
-    ``known_versions`` / ``known_opaque`` / ``known_life`` are the
-    sections of a peer's :class:`~repro_torch.core.digest.StoreDigest`
-    and turn the encoder into the responder of a digest exchange: chunk
-    rows whose version the digest already covers are dropped while the
-    columns are built, opaque keys with a matching content hash are
-    dropped whole, and a key none of whose rows survive is elided.
+    ``known_versions`` / ``known_opaque`` / ``known_life`` /
+    ``known_causal`` are the sections of a peer's
+    :class:`~repro_torch.core.digest.StoreDigest` and turn the encoder
+    into the responder of a digest exchange: chunk rows whose version the
+    digest already covers are dropped while the columns are built, opaque
+    keys with a matching content hash are dropped whole, causal keys are
+    narrowed to the exact missing-dot response
+    (:func:`~repro_torch.core.dotcols.causal_diff_cols`), and a key none
+    of whose rows or dots survive is elided.
     Lifecycle-aware: life entries ship iff strictly above the peer's, a
     key the peer has tombstoned *past* contributes nothing, and
     version/hash filters only compare within one incarnation.
@@ -156,8 +176,6 @@ def _emit_store(out: bytearray, store: LatticeStore, known_versions=None,
                 compress: bool = False) -> bytearray:
     """:func:`encode_store` appending to ``out`` (frames build their
     whole body in one buffer)."""
-    if known_causal:
-        raise _dotstore_unported("encode_store(known_causal=...)")
     base = len(out)            # column alignment is relative to the body
     life_map = dict(store.life)
 
@@ -188,8 +206,20 @@ def _emit_store(out: bytearray, store: LatticeStore, known_versions=None,
             entries.append((key, _KIND_TENSOR, val))
             rows_of.extend(key_rows)
         else:
-            if type(val).__name__ in CAUSAL_TYPE_NAMES:
-                raise _dotstore_unported(f"encode_store of key {key!r}")
+            cw = _causal_wire_value(val)
+            if cw is not None:
+                tid, cv = cw
+                g = (known_causal.get(key)
+                     if known_causal is not None and same_epoch else None)
+                if g is not None:
+                    # the per-dot filter runs at encode time: only the
+                    # dots the requester's context lacks, plus the exact
+                    # removal context
+                    cv = dotcols.causal_diff_cols(cv, g)
+                    if cv is None:
+                        continue    # requester lacks nothing: elide key
+                entries.append((key, _KIND_DOTSTORE, (tid, cv)))
+                continue
             if (known_opaque is not None and same_epoch
                     and known_opaque.get(key) == opaque_hash(val)):
                 continue            # peer holds this exact value
@@ -202,6 +232,7 @@ def _emit_store(out: bytearray, store: LatticeStore, known_versions=None,
     out += _U32.pack(len(entries))
     tensor_descs: List[Tuple[int, str, Any]] = []   # (key_i, name, ct)
     opaque: List[Tuple[int, Any]] = []
+    dotstores: List[Tuple[int, int, Any]] = []      # (key_i, type_id, value)
     for key_i, (key, kind, val) in enumerate(entries):
         _put_str(out, key)
         if kind == _KIND_TENSOR:
@@ -209,6 +240,9 @@ def _emit_store(out: bytearray, store: LatticeStore, known_versions=None,
             out += _U64.pack(int(val.lamport))
             for name, ct in val.chunks:
                 tensor_descs.append((key_i, name, ct))
+        elif kind == _KIND_DOTSTORE:
+            out += bytes([_KIND_DOTSTORE])
+            dotstores.append((key_i, *val))
         else:
             out += bytes([_KIND_OPAQUE])
             opaque.append((key_i, val))
@@ -221,8 +255,23 @@ def _emit_store(out: bytearray, store: LatticeStore, known_versions=None,
         out += _U32.pack(len(blob))
         out += blob
 
-    # -- dot-store bodies (none until slice B) ---------------------------------
-    out += _U32.pack(0)
+    # -- dot-store bodies: dot columns + vv summary per causal key ------------
+    out += _U32.pack(len(dotstores))
+    for key_i, tid, cv in dotstores:
+        out += _U32.pack(key_i)
+        out += _U8.pack(tid)
+        body = bytearray()
+        _emit_dotstore(body, cv)
+        if compress:
+            blob = zlib.compress(bytes(body))
+            out += _U8.pack(1)
+            out += _U32.pack(len(blob))
+            out += blob
+        else:
+            out += _U8.pack(0)
+            out += _U32.pack(len(body))
+            pad8()                  # the body starts 8-aligned: zero-copy
+            out += body
 
     # -- tensor descriptors -------------------------------------------------------
     out += _U32.pack(len(tensor_descs))
@@ -290,6 +339,85 @@ def _emit_columns(out: bytearray, base: int, members, rows_of) -> None:
     pad8()
 
 
+_SHAPE_BY_CLS = {DotSetCols: dotcols.SHAPE_SET, DotFunCols: dotcols.SHAPE_FUN,
+                 DotMapCols: dotcols.SHAPE_MAP}
+
+
+def _emit_dotstore(body: bytearray, cv) -> None:
+    """One causal value's dot-column body, 8-aligned relative to
+    ``body``'s start (which the caller places 8-aligned in the payload,
+    or at offset 0 of a zlib stream): a shared rid table, the context's
+    dense vv column + sorted cloud column, then the store's dot column
+    (and, for maps, the key table + per-key group offsets). Values are
+    one pickled tuple — dots are the dominant bytes and stay raw."""
+    S, C = cv.store, cv.ctx
+    rids, (ms, mc) = dotcols._union_rids(S.rids, C.rids)
+    body += _U16.pack(len(rids))
+    for r in rids:
+        _put_str(body, r)
+    body += _U8.pack(_SHAPE_BY_CLS[type(S)])
+    _pad8(body)
+    _put_array(body, dotcols._dense_vv(len(rids), mc, C.vvcol))
+    cloud = dotcols._remap(C.cloudcol, mc)
+    body += _U32.pack(cloud.size)
+    _pad8(body)
+    _put_array(body, cloud)
+    if isinstance(S, DotMapCols):
+        body += _U32.pack(len(S.map_keys))
+        kblob = pickle.dumps(S.map_keys, protocol=4)
+        body += _U32.pack(len(kblob))
+        body += kblob
+        body += S.shapes
+        _pad8(body)
+        _put_array(body, np.asarray(S.offsets, dtype=np.int64))
+    dots = dotcols._remap(S.packed, ms)
+    body += _U64.pack(dots.size)
+    _pad8(body)
+    _put_array(body, dots)
+    if isinstance(S, DotSetCols):
+        body += _U8.pack(0)
+    else:
+        body += _U8.pack(1)
+        vblob = pickle.dumps(tuple(S.vals), protocol=4)
+        body += _U32.pack(len(vblob))
+        body += vblob
+
+
+def _read_dotstore(cur: "_Cursor", tid: int):
+    """Decode one dot-column body at the cursor into a causal CRDT value
+    on the columnar representation (dot, offset and vv columns are
+    zero-copy views when the body was not compressed)."""
+    n_rids = cur.unpack(_U16)
+    rids = tuple(cur.get_str() for _ in range(n_rids))
+    shape = cur.unpack(_U8)
+    vv = cur.array(np.int64, n_rids)
+    n_cloud = cur.unpack(_U32)
+    cloud = cur.array(np.int64, n_cloud)
+    ctx = CausalContextCols(rids, vv, cloud)
+    if shape == dotcols.SHAPE_MAP:
+        n_keys = cur.unpack(_U32)
+        map_keys = pickle.loads(cur.get_blob())
+        shapes = bytes(cur.buf[cur.off:cur.off + n_keys])
+        cur.off += n_keys
+        offsets = cur.array(np.int64, n_keys + 1)
+    n_dots = cur.unpack(_U64)
+    dots = cur.array(np.int64, n_dots)
+    if cur.unpack(_U8):
+        vals_t = pickle.loads(cur.get_blob())
+        vals = np.empty(len(vals_t), object)
+        for j, v in enumerate(vals_t):
+            vals[j] = v
+    else:
+        vals = np.full(n_dots, None, object)
+    if shape == dotcols.SHAPE_SET:
+        store = DotSetCols(rids, dots)
+    elif shape == dotcols.SHAPE_FUN:
+        store = DotFunCols(rids, dots, vals)
+    else:
+        store = DotMapCols(rids, map_keys, shapes, offsets, dots, vals)
+    return CAUSAL_WIRE_TYPES[tid](store, ctx)
+
+
 def store_body_is_empty(body) -> bool:
     """True iff a store payload carries nothing at all — no keys and no
     lifecycle entries (parsed structurally from the counts)."""
@@ -351,8 +479,20 @@ def decode_store(buf, to_device: bool = False,
         key_i = cur.unpack(_U32)
         values[key_i] = pickle.loads(cur.get_blob())
 
-    if cur.unpack(_U32):
-        raise _dotstore_unported("decode_store")
+    n_dotstores = cur.unpack(_U32)
+    for _ in range(n_dotstores):
+        key_i = cur.unpack(_U32)
+        tid = cur.unpack(_U8)
+        if cur.unpack(_U8):          # per-body compression flag
+            blob = cur.get_blob()
+            values[key_i] = _read_dotstore(_Cursor(zlib.decompress(blob)),
+                                           tid)
+        else:
+            blen = cur.unpack(_U32)
+            cur.align8()
+            start = cur.off
+            values[key_i] = _read_dotstore(cur, tid)
+            cur.off = start + blen   # the body length is explicit
 
     n_descs = cur.unpack(_U32)
     descs: List[Tuple[int, str, int]] = []
@@ -461,13 +601,12 @@ def decode_value(buf, to_device: bool = False, device="cuda") -> Any:
 def encode_digest(digest) -> bytes:
     """Binary body of a :class:`~repro_torch.core.digest.StoreDigest`:
     per (key, tensor) the dense chunk-version column, per opaque key the
-    16-byte content hash, the life section, and the (empty) causal
-    section. A :class:`LatticeStore` is summarized first."""
+    16-byte content hash, the life section, and per causal key the vv +
+    cloud summary and flat store dot column. A :class:`LatticeStore` is
+    summarized first."""
     if isinstance(digest, LatticeStore):
         from ..core.digest import store_digest
         digest = store_digest(digest)
-    if digest.causal:
-        raise _dotstore_unported("encode_digest")
     out = bytearray()
     out += _U32.pack(len(digest.tensors))
     for (key, name), vers in digest.tensors.items():
@@ -487,7 +626,30 @@ def encode_digest(digest) -> bytes:
     for key, (epoch, expiry) in digest.life.items():
         _put_str(out, key)
         out += _LIFE.pack(int(epoch), float(expiry))
-    out += _U32.pack(0)               # causal section (slice B)
+    # causal section: per dot-store key, the vv + cloud summary and the
+    # flat store dot column, delta-encoded (per-replica dots are
+    # near-contiguous) and always deflated — a digest is read once to
+    # filter, never ingested zero-copy
+    out += _U32.pack(len(digest.causal))
+    for key, g in digest.causal.items():
+        _put_str(out, key)
+        inner = bytearray()
+        inner += _U16.pack(len(g.rids))
+        for r in g.rids:
+            _put_str(inner, r)
+        _pad8(inner)
+        _put_array(inner, np.asarray(g.vvcol, dtype=np.int64))
+        inner += _U32.pack(g.cloudcol.size)
+        _pad8(inner)
+        _put_array(inner, np.asarray(g.cloudcol, dtype=np.int64))
+        inner += _U64.pack(g.dotcol.size)
+        _pad8(inner)
+        dots = np.asarray(g.dotcol, dtype=np.int64)
+        if dots.size:
+            _put_array(inner, np.diff(dots, prepend=np.int64(0)))
+        blob = zlib.compress(bytes(inner))
+        out += _U32.pack(len(blob))
+        out += blob
     return bytes(out)
 
 
@@ -512,6 +674,17 @@ def decode_digest(buf) -> StoreDigest:
         key = cur.get_str()
         epoch, expiry = cur.unpack(_LIFE)
         out.life[key] = (int(epoch), float(expiry))
-    if cur.unpack(_U32):
-        raise _dotstore_unported("decode_digest")
+    n_causal = cur.unpack(_U32)
+    for _ in range(n_causal):
+        key = cur.get_str()
+        icur = _Cursor(zlib.decompress(cur.get_blob()))
+        n_rids = icur.unpack(_U16)
+        rids = tuple(icur.get_str() for _ in range(n_rids))
+        vv = icur.array(np.int64, n_rids)
+        n_cloud = icur.unpack(_U32)
+        cloud = icur.array(np.int64, n_cloud)
+        n_dots = icur.unpack(_U64)
+        deltas = icur.array(np.int64, n_dots)
+        dots = np.cumsum(deltas, dtype=np.int64) if n_dots else deltas
+        out.causal[key] = CausalDigest(rids, vv, cloud, dots)
     return out

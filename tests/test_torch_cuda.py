@@ -285,12 +285,30 @@ def test_prefill_takes_the_route_of_its_rule(card, dtype, hd, route):
 
 
 @pytest.mark.cuda
-def test_tensor_core_route_refuses_unaligned_operands(card):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_unaligned_tensor_core_operands_take_the_cuda_core_route(card,
+                                                                 dtype):
+    """bf16 / f16 at head_dim 64 whose operands start 8 bytes past a
+    16-byte boundary: the prefill runs on the CUDA cores (counted under
+    that route) and matches the plain version."""
     g = torch.Generator(device=card).manual_seed(3)
-    wide = _randn((1, 2, 64, 72), torch.bfloat16, card, g)
+    wide = _randn((1, 2, 64, 72), dtype, card, g)
     q = wide[..., 4:68]                   # 8-byte offset: not 16-byte aligned
-    with pytest.raises(ValueError):
-        fa.flash_attention(q, q, q)
+    assert fa.prefill_route(dtype, 64) == "tc"
+    before = dict(fa.routes)
+    got = fa.flash_attention(q, q, q)
+    torch.cuda.synchronize()
+    _assert_attention_close(got, ref.attention_ref(q, q, q))
+    assert fa.routes["flash_attention_simt"] == \
+        before["flash_attention_simt"] + 1
+    assert fa.routes["flash_attention_tc"] == before["flash_attention_tc"]
+
+
+@pytest.mark.cuda
+def test_decode_rules_take_the_cards_sm_count(card):
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert fa.sm_count(card) == sms
+    assert fa.decode_splits(1, 1, 1 << 20, 128, sms)[0] >= 2 * sms
 
 
 SPLIT_CASES = [
@@ -343,3 +361,62 @@ def test_flash_decode_is_deterministic(card, dtype):
     one = fa.flash_decode(q, k, v, qpos, kpos)
     two = fa.flash_decode(q, k, v, qpos, kpos)
     assert torch.equal(_bits(one), _bits(two))
+
+
+# ---------------------------------------------------------------------------
+# The causal joins' containment mask (repro_torch.core.dotcols)
+# ---------------------------------------------------------------------------
+
+def _mask_operands(n, n_rids, with_cloud, seed, top=False):
+    """``n`` sorted packed dots over ``n_rids`` replicas (the last ones of
+    a 2^15-entry rid table when ``top``), a dense vv column, and a sorted
+    cloud of dots above it."""
+    from repro_torch.core.dotcols import SEQ_BITS
+    rng = np.random.default_rng(seed)
+    size = 1 << 15 if top else n_rids
+    hot = np.arange(size - n_rids, size, dtype=np.int64)
+    vv = np.zeros(size, np.int64)
+    vv[hot] = rng.integers(0, 1 << 20, n_rids)
+    dots = np.unique((hot[rng.integers(0, n_rids, n)] << SEQ_BITS)
+                     | rng.integers(1, 1 << 21, n).astype(np.int64))
+    cloud = np.zeros(0, np.int64)
+    if with_cloud:
+        above = dots[(dots & ((1 << SEQ_BITS) - 1)) > vv[dots >> SEQ_BITS]]
+        cloud = np.unique(rng.choice(above, min(above.size, 4099)))
+    return vv, cloud, dots
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1000, 131071, 262147])
+@pytest.mark.parametrize("with_cloud", [False, True])
+@pytest.mark.parametrize("top", [False, True])
+def test_device_mask_matches_numpy(card, n, with_cloud, top):
+    from repro_torch.core import dotcols
+    vv, cloud, dots = _mask_operands(n, 7, with_cloud, n + top, top)
+    want = dotcols.missing_mask(vv, cloud, dots, backend="numpy")
+    with dotcols.mask_device(card):
+        got = dotcols.missing_mask(vv, cloud, dots, backend="torch")
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_auto_dispatched_mask_launches_on_the_card_and_counts_staging(card):
+    """At ``_DEVICE_MIN_ROWS`` rows the default scope sends the mask to
+    the card: one launch, the three int64 columns staged, the bool mask
+    fetched back. One row fewer stays on numpy with no launch."""
+    from repro_torch.core import dotcols
+    vv, cloud, dots = _mask_operands(3 * dotcols._DEVICE_MIN_ROWS, 5, True,
+                                     11)
+    dots = dots[:dotcols._DEVICE_MIN_ROWS]
+    want = dotcols.missing_mask(vv, cloud, dots, backend="numpy")
+    before = dotcols.launches["missing_mask"]
+    snap = ops.counters.snapshot()
+    np.testing.assert_array_equal(dotcols.missing_mask(vv, cloud, dots),
+                                  want)
+    moved = ops.counters.since(snap)
+    assert dotcols.launches["missing_mask"] == before + 1
+    assert moved["launches"] == 1
+    assert moved["h2d_bytes"] == vv.nbytes + cloud.nbytes + dots.nbytes
+    assert moved["d2h_bytes"] == dots.size
+    dotcols.missing_mask(vv, cloud, dots[:-1])
+    assert dotcols.launches["missing_mask"] == before + 1

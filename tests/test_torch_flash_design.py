@@ -271,6 +271,21 @@ def test_decode_threads_per_slot_rule(group, hd, blocks, tps):
     assert fa.decode_threads_per_slot(group, hd, blocks) == tps
 
 
+@pytest.mark.parametrize("sms", [114, 132, 144])
+def test_decode_rules_follow_the_sm_count(sms):
+    """The split and threads-per-slot rules scale with the card's SMs
+    (an H100 PCIe has 114, an SXM 132): a long cache fills two blocks an
+    SM, and four threads a slot stop at one block an SM."""
+    for b, kv in ((1, 1), (2, 2), (4, 16)):
+        splits, per = fa.decode_splits(b, kv, 1 << 20, 128, sms)
+        assert splits * b * kv >= 2 * sms
+        assert splits * b * kv < 4 * sms or b * kv > 2 * sms
+    assert fa.decode_threads_per_slot(6, 128, sms - 1, sms) == 4
+    assert fa.decode_threads_per_slot(6, 128, sms, sms) == 1
+    assert fa.decode_splits(1, 1, 1 << 20, 128) == fa.decode_splits(
+        1, 1, 1 << 20, 128, fa.SMS)
+
+
 def test_cpu_route_counts_no_kernel_route():
     rng = np.random.default_rng(0)
     q, k, v = (torch.from_numpy(rng.normal(size=(1, 2, 16, 64)).astype(

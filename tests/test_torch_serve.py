@@ -2,8 +2,9 @@
 prints the JAX package's serve.py lines; its prompt is that script's (same
 ``--seed``, same token ids); its greedy loop, given the JAX package's
 parameters, yields the JAX loop's tokens; teacher forcing with its own
-tokens reproduces a run; and the gossip and socket modes, which wait for
-slices B and C, exit with an error naming their slice."""
+tokens reproduces a run; ``--replicate`` gossips the batch's session
+table to every status "done"; and keyed sessions and socket mode, which
+wait for slice C, exit with an error naming it."""
 
 import ast
 import os
@@ -43,9 +44,39 @@ def test_serve_runs_on_the_cpu_and_prints_its_lines():
     assert len(ast.literal_eval(lines[2].split(": ", 1)[1])) == 6
 
 
+def test_replicate_gossips_the_session_table_to_done():
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--batch", "4", "--prompt-len", "8", "--gen", "3", "--replicate",
+         "3"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    line = out.stdout.splitlines()[3]
+    assert line.startswith("  [δ-CRDT] session table replicated over 3 "
+                           "gateways (25% loss, policy=bp+rr, frame_bytes=")
+    statuses = ast.literal_eval(line.split("): ", 1)[1])
+    assert statuses == {f"req{r}": "done" for r in range(4)}
+
+
+@pytest.mark.parametrize("policy", ["bp+rr", "digest-sync", "every:2"])
+@pytest.mark.parametrize("wire", [True, False])
+def test_replicate_sessions_converges_under_each_policy(policy, wire):
+    statuses, payload = serve.replicate_sessions(5, 3, policy, seed=2,
+                                                 wire=wire, device="cpu")
+    assert statuses == {f"req{r}": "done" for r in range(5)}
+    assert payload > 0
+
+
+def test_replicate_rejects_a_basic_mode_policy(capsys):
+    with pytest.raises(SystemExit) as e:
+        serve.main(["--device", "cpu", "--replicate", "3",
+                    "--ship-policy", "digest:4096"])
+    assert e.value.code == 2
+
+
 @pytest.mark.parametrize("argv, slice_", [
-    (["--replicate", "3"], "slice B"),
-    (["--sessions", "8"], "slice B"),
+    (["--sessions", "8"], "slice C"),
     (["--listen", "127.0.0.1:7000", "--peers", "b@127.0.0.1:7001"],
      "slice C"),
     (["--arch", "gemma2-27b"], "slice E"),

@@ -215,3 +215,161 @@ def test_decode_to_device_attaches_columns_and_counts_staging():
     assert isinstance(g.vals_dev, torch.Tensor)
     assert staged == g.vals_dev.numel() * 4 + g.vers_dev.numel() * 4
     assert canonical(d) == canonical(rcodec.decode_store(buf))
+
+
+# ---------------------------------------------------------------------------
+# Causal dot-store bodies and digest sections
+# ---------------------------------------------------------------------------
+
+def causal_values(C, seed):
+    """One value of each causal wire type, built by the same seeded
+    δ-mutations in package ``C`` (its ``crdts`` module)."""
+    import random
+    rng = random.Random(seed)
+    out = {}
+    s = C.AWORSet()
+    for _ in range(12):
+        s = s.join(s.add_delta(rng.choice("ab"), rng.randrange(9)))
+    out["set"] = s.join(s.rmv_delta("a", sorted(s.elements())[0]))
+    w = C.RWORSet()
+    for _ in range(6):
+        e = rng.randrange(4)
+        w = w.join(w.add_delta("b", e) if rng.random() < 0.6
+                   else w.rmv_delta("b", e))
+    out["rw"] = w
+    m = C.MVRegister()
+    for v in ("x", ("y", 2), 3.5):
+        m = m.join(m.write_delta(rng.choice("ab"), v))
+    out["reg"] = m
+    out["ew"] = C.EWFlag().enable_full("a").disable_full("b").enable_full(
+        "c")
+    out["dw"] = C.DWFlag().disable_full("a")
+    o = C.ORMap()
+    for r in range(6):
+        for status in ("queued", "done"):
+            o = o.join(o.apply_delta(f"gw{r % 3}", f"req{r}", C.MVRegister,
+                                     "write_delta", status))
+    out["map"] = o.join(o.rmv_delta("gw0", "req4"))
+    return out
+
+
+def _causal_stores(seed, life=()):
+    from repro.core import crdts as rcrdts
+    from repro_torch.core import crdts as tcrdts
+    from repro_torch.core.store import LatticeStore as TStore
+    rv, tv = causal_values(rcrdts, seed), causal_values(tcrdts, seed)
+    return (rstore.LatticeStore.of(rv, dict(life)), TStore.of(tv, dict(life)),
+            rv, tv)
+
+
+def _canon_value(v):
+    from repro_torch.core import dotcols as tdc
+    from repro_torch.core.digest import _canon
+    return _canon(tdc.value_to_obj(v))
+
+
+@pytest.mark.parametrize("compress", [False, True])
+def test_causal_bodies_identical_and_cross_decodable(compress):
+    """Every causal type rides as a dot-column body byte-identical to the
+    JAX package's (mixed with tensors and life entries), and each package
+    decodes the other's bytes to equal values."""
+    from repro.core import dotcols as rdc
+    from repro.core.digest import _canon as rcanon
+    from repro_torch.core.store import LatticeStore as TStore
+    _, _, rv, tv = _causal_stores(11)
+    p = plain_store(1)
+    r = rstore.LatticeStore.of({**rv, **dict(ref_store(p).entries)},
+                               dict(LIFE))
+    t = TStore.of({**tv, **dict(port_store(p).entries)}, dict(LIFE))
+    rb = rcodec.encode_store(r, compress=compress)
+    tb = tcodec.encode_store(t, compress=compress)
+    assert tb == rb
+    back = tcodec.decode_store(rb)
+    assert back.life == t.life
+    for key, val in tv.items():
+        got = back.get(key)
+        assert got.store.columnar and got == val
+        want = rcodec.decode_store(tb).get(key)
+        assert _canon_value(got) == rcanon(rdc.value_to_obj(want))
+    assert canonical(back.restrict(["k0", "k1", "k2"])) == canonical(
+        tcodec.decode_store(tcodec.encode_store(port_store(p, LIFE))))
+
+
+def _ahead(C, vals, seed):
+    """``vals`` a few δ-mutations further: a removed map key, a new
+    element, a rewritten register."""
+    import random
+    rng = random.Random(seed)
+    out = dict(vals)
+    m = out["map"]
+    out["map"] = m.join(m.rmv_delta("gw1", "req1"))
+    s = out["set"]
+    out["set"] = s.join(s.add_delta("c", rng.randrange(9)))
+    g = out["reg"]
+    out["reg"] = g.join(g.write_delta("c", "z"))
+    return out
+
+
+def test_causal_digest_sections_identical_and_filter_identical():
+    """Digests of causal keys are byte-identical, decode to equal
+    per-dot summaries either way, and the responder's per-dot filtered
+    body is byte-identical; joining it gives the responder's state."""
+    from repro.core import crdts as rcrdts
+    from repro_torch.core import crdts as tcrdts
+    from repro_torch.core.store import LatticeStore as TStore
+    _, _, rv, tv = _causal_stores(12)
+    r = rstore.LatticeStore.of(_ahead(rcrdts, rv, 5))
+    t = TStore.of(_ahead(tcrdts, tv, 5))
+    rd = rdigest.store_digest(rstore.LatticeStore.of(rv))
+    req = TStore.of(tv)
+    td = tdigest.store_digest(req)
+    assert set(td.causal) == set(tv) and not td.opaque
+    assert tcodec.encode_digest(td) == rcodec.encode_digest(rd)
+    td2 = tcodec.decode_digest(rcodec.encode_digest(rd))
+    assert td2 == td
+    rresp = rcodec.encode_store(r, known_opaque=rd.opaque,
+                                known_life=rd.life, known_causal=rd.causal)
+    tresp = tcodec.encode_store(t, known_opaque=td.opaque,
+                                known_life=td.life, known_causal=td.causal)
+    assert tresp == rresp
+    assert not tcodec.store_body_is_empty(tresp)
+    shipped = tcodec.decode_store(tresp)
+    assert shipped.keys() == {"map", "set", "reg"}
+    joined = req.join(shipped)
+    assert joined == req.join(t) == t
+    # the object-mode responder ships the same sub-delta
+    assert req.join(tdigest.digest_diff(t, td)) == joined
+    # a requester that holds everything gets nothing at all
+    ahead = tdigest.store_digest(t)
+    assert tcodec.store_body_is_empty(tcodec.encode_store(
+        req, known_causal=ahead.causal, known_opaque=ahead.opaque,
+        known_life=ahead.life))
+
+
+def test_opaque_crdt_bodies_round_trip_port_to_port():
+    """Non-causal CRDTs ride as pickles of the port's classes: they round
+    trip in the port and hash like the JAX package's values (their bytes
+    name each package's module, so they differ by design)."""
+    from repro.core import crdts as rcrdts
+    from repro.core.digest import opaque_hash as rhash
+    from repro_torch.core import crdts as tcrdts
+    from repro_torch.core.digest import opaque_hash as thash
+    from repro_torch.core.store import LatticeStore as TStore
+
+    def values(C):
+        g = C.GCounter().inc_full("a", 3).inc_full("b")
+        return {"g": g, "pn": C.PNCounter().inc_full("a", 2).dec_full("b"),
+                "gs": C.GSet().add_full(("x", 1)),
+                "lww": C.LWWSet().add_full("a", 4, "e").rmv_full("b", 5, "f"),
+                "reg": C.LWWRegister().write_full("a", 7, {"k": 1})}
+    tv, rv = values(tcrdts), values(rcrdts)
+    t = TStore.of(tv)
+    back = tcodec.decode_store(tcodec.encode_store(t))
+    assert back == t
+    assert tframes.WireCodec().decode_msg(
+        tframes.WireCodec().encode_msg(("delta", tv["g"])))[1] == tv["g"]
+    for key in tv:
+        assert type(back.get(key)) is type(tv[key])
+        assert thash(tv[key]) == rhash(rv[key])
+    assert tcodec.encode_store(t) != rcodec.encode_store(
+        rstore.LatticeStore.of(rv))
