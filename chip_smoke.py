@@ -57,6 +57,28 @@ NVIDIA card. Run from the root of a checkout:
    wire, no loss) with its masks on the card: it converges to the
    responder's state, the pull stays within 5% of one full-state frame,
    and its bytes equal the reference's (constants the CPU tests confirm).
+5b. Net store path: three ``GossipNode``s in one event loop over TCP on
+   loopback ephemeral ports, each holding a device-resident basic-mode
+   ``StoreReplica`` of the same qwen1.5-0.5b-sized store (digest-sync,
+   ``WireCodec(to_device=True)``). Every member loads the same initial
+   store locally, as pods start from one checkpoint (one 1.86 GB state
+   cannot cross as a frame: the transport refuses frames above 64 MiB).
+   8 write rounds as in step 3 follow, each gossiped until every version
+   digest agrees; then two members' stores are merged state-based. Per
+   round: the wall time (ending in a synchronise), frames and bytes by
+   kind, the largest frame against 64 MiB, queue drops and host→device
+   bytes per ingest. The members and their merge must equal a numpy
+   replay bit for bit; every δ-CRDT kernel must launch, and the launches
+   read through ``obs.trace_kernel_launches`` must equal the kernels'
+   own counts, the ``ops.counters`` diff and the
+   ``repro_kernel_launches_total`` that ``Registry`` exports.
+5c. Net sessions: three OS processes of ``python -m
+   repro_torch.launch.serve --listen … --peers … --sessions 24`` gossip
+   over UDP with 10% injected loss on loopback until every status file
+   shows every session done and one fingerprint, each with the
+   ``repro_net_*`` metric families; then the in-process ``serve
+   --sessions 64 --session-ttl 5`` on the simulator must report every
+   session reaped by its owners' ack quorum.
 7. Serve path: ``repro_torch.launch.serve``'s model part serves
    qwen1.5-0.5b (published config, bf16, random weights from the seed)
    to 4 requests of 1,000 prompt tokens with 32 greedy tokens each, then
@@ -158,6 +180,26 @@ MASK_DOTS = (1 << 20, 1 << 24)   # 8 MB and 128 MB int64 dot columns
 MASK_RIDS = 64
 MASK_CLOUD = 1 << 16
 MASK_NUMPY_REPS = 5
+# the net phases: the store over TCP on loopback (anti-entropy period,
+# digest poll, per-round wait, the transport's frame limit) and the
+# session cluster of three serve processes over lossy UDP, as
+# benchmarks/bench_net.py runs it. The three members share one event
+# loop, and a digest request that arrives before the requester has
+# ingested the previous response is answered again: at a 0.5 s period
+# the redundant responses compounded from round to round (PERF.md §6),
+# so the period leaves the host several times a round's work.
+NET_TICK = 2.0
+NET_POLL = 0.1
+NET_ROUND_TIMEOUT = 120.0
+MAX_FRAME = 64 << 20
+NET_SESSIONS = 24
+NET_SESSION_ARGS = ("--sessions", str(NET_SESSIONS), "--ship-policy",
+                    "bp+rr+digest-sync:4", "--transport", "udp",
+                    "--udp-loss", "0.1", "--tick", "0.1", "--metrics")
+NET_RUN_FOR = 20.0
+NET_WAIT_S = 90.0
+TTL_SESSIONS = 64
+TTL_SECONDS = 5
 
 
 def log(*parts) -> None:
@@ -905,6 +947,374 @@ def topk_check(store, dev) -> None:
 
 
 # ---------------------------------------------------------------------------
+# 5b. Net store path: the resident store replicating over loopback TCP
+# ---------------------------------------------------------------------------
+
+def _kernel_launch_total(registry, node) -> int:
+    return int(registry.snapshot()["repro_kernel_launches_total"][node])
+
+
+def net_store_path(dev, tensors, chunk=CHUNK, write_rounds=WRITE_ROUNDS,
+                   rows_per_tensor=ROWS_PER_TENSOR, tick=NET_TICK) -> dict:
+    """Three ``GossipNode``s in one event loop over TCP on loopback
+    ephemeral ports, each holding a device-resident basic-mode
+    ``StoreReplica`` (``digest-sync``, ``WireCodec(to_device=True)``).
+    Every member loads the same initial store locally (version
+    ``make_version(1, 0)``, lamport 1, as pods start from one
+    checkpoint), then ``write_rounds`` rounds of writes follow as in
+    :func:`main_path`, each gossiped until every version digest agrees.
+    The per-kernel launches are counted from 0 around the phase and read
+    three ways: ``delta_join.launches``, ``kernel_launch`` events of
+    ``obs.trace_kernel_launches``, and ``repro_kernel_launches_total`` of
+    ``Registry.absorb_kernel_counters``."""
+    import asyncio
+    import random
+    import torch
+    from repro_torch.core.digest import store_digest
+    from repro_torch.core.propagation import (StoreReplica, make_policy,
+                                              stable_seed)
+    from repro_torch.core.store import LatticeStore
+    from repro_torch.core.tensor_lattice import (ChunkedTensor, TensorState,
+                                                 make_version)
+    from repro_torch.kernels import delta_join as dj
+    from repro_torch.kernels import ops, resident
+    from repro_torch.net import start_cluster, stop_cluster, wait_converged
+    from repro_torch.obs import Registry, Tracer, trace_kernel_launches
+    from repro_torch.wire import WireCodec
+
+    rng = np.random.default_rng(SEED + 1)
+    names = [n for n, _ in tensors]
+    rows, init = make_store_values(tensors, chunk, rng)
+    version0 = make_version(1, 0)
+    replay = Replay(names, rows, init, version0)
+
+    def factory(node_id, neighbors):
+        return StoreReplica(
+            node_id, list(neighbors), causal=False, resident=True,
+            device=dev, wire=WireCodec(to_device=True, device=dev),
+            policy=make_policy("digest-sync"),
+            rng=random.Random(stable_seed(node_id)))
+
+    def sync() -> None:
+        if dev != "cpu":
+            torch.cuda.synchronize()
+
+    def totals(nodes) -> dict:
+        out = {"frames": {}, "bytes": {}, "recv": 0, "queue_drops": 0}
+        for n in nodes:
+            for k, v in n.stats.by_kind.items():
+                out["frames"][k] = out["frames"].get(k, 0) + v
+            for k, v in n.stats.bytes_by_kind.items():
+                out["bytes"][k] = out["bytes"].get(k, 0) + v
+            out["recv"] += n.stats.recv_by_kind.get("digest-resp", 0)
+            out["queue_drops"] += n.stats.queue_drops
+        return out
+
+    def diff(after, before) -> dict:
+        return {"frames": {k: v - before["frames"].get(k, 0)
+                           for k, v in after["frames"].items()},
+                "bytes": {k: v - before["bytes"].get(k, 0)
+                          for k, v in after["bytes"].items()},
+                "ingests": after["recv"] - before["recv"],
+                "queue_drops": after["queue_drops"] - before["queue_drops"]}
+
+    tracer = Tracer(node="net-store", capacity=1 << 20)
+    registry = Registry()
+    registry.absorb_kernel_counters(node="net-store")
+    largest, max_frame = [0, 0], [0]      # overall, this round; limit
+    ingests = []                # (frame bytes, h2d bytes) of each ingest
+    host_s = {}                 # host seconds in ticks, frames and polls
+
+    async def scenario():
+        nodes = await start_cluster(len(IDS), transport="tcp", tick=tick,
+                                    replica_factory=factory,
+                                    start_gossip=False, seed=SEED)
+        try:
+            max_frame[0] = max(n.transport.max_frame for n in nodes)
+            for n in nodes:            # every frame delivered, by size
+                def seen(src, frame, deliver=n._on_frame):
+                    largest[0] = max(largest[0], len(frame))
+                    largest[1] = max(largest[1], len(frame))
+                    h2d = ops.counters.h2d_bytes
+                    t = time.perf_counter()
+                    deliver(src, frame)
+                    kind = getattr(frame, "kind", "frame")
+                    host_s[kind] = (host_s.get(kind, 0.0)
+                                    + time.perf_counter() - t)
+                    if kind == "digest-resp":
+                        ingests.append((len(frame),
+                                        ops.counters.h2d_bytes - h2d))
+                n.transport.set_receiver(seen)
+
+                def timed_tick(periodic=n.replica.on_periodic):
+                    t = time.perf_counter()
+                    periodic()
+                    host_s["tick"] = (host_s.get("tick", 0.0)
+                                      + time.perf_counter() - t)
+                n.replica.on_periodic = timed_tick
+            t = time.perf_counter()
+            for n in nodes:
+                model = {}
+                for name, r in zip(names, rows):
+                    s = replay.offset[name]
+                    model[name] = TensorState.of({"w": ChunkedTensor(
+                        torch.from_numpy(init[s:s + r]),
+                        torch.full((r,), version0, dtype=torch.int32))},
+                        lamport=1)
+                n.replica.operation(lambda _s, m=model: LatticeStore.of(m))
+                resident.ensure(n.replica.store, dev)  # adopt on the card
+            sync()
+            log(f"net store: {len(nodes)} members over TCP at "
+                + ", ".join(n.addr for n in nodes) + f", each loaded "
+                f"{init.nbytes} bytes in {time.perf_counter() - t:.3f} s")
+            for n in nodes:
+                await n.start()
+
+            def agreed() -> bool:
+                t = time.perf_counter()
+                d0 = store_digest(nodes[0].replica.store)
+                same = all(store_digest(n.replica.store) == d0
+                           for n in nodes[1:])
+                host_s["poll"] = (host_s.get("poll", 0.0)
+                                  + time.perf_counter() - t)
+                return same
+
+            big = [i for i, r in enumerate(rows) if r >= rows_per_tensor]
+            rounds = []
+            for rnd in range(write_rounds):
+                before = totals(nodes)
+                first = len(ingests)
+                host_s.clear()
+                largest[1] = 0
+                t = time.perf_counter()
+                for rank, n in enumerate(nodes):
+                    for ti in rng.choice(big, size=TENSORS_PER_WRITE,
+                                         replace=False):
+                        name = names[ti]
+                        sel = np.sort(rng.choice(rows[ti],
+                                                 size=rows_per_tensor,
+                                                 replace=False))
+                        cut = rows_per_tensor * 5 // 8
+                        i1, i2 = sel[:cut], sel[rows_per_tensor - cut:]
+                        v1 = rng.standard_normal((len(i1), chunk),
+                                                 np.float32)
+                        v2 = rng.standard_normal((len(i2), chunk),
+                                                 np.float32)
+                        cur = n.replica.get(name, TensorState)
+                        d1 = cur.write_delta(rank, "w",
+                                             torch.from_numpy(v1).to(dev),
+                                             chunk_idx=i1)
+                        d2 = d1.write_delta(rank, "w",
+                                            torch.from_numpy(v2).to(dev),
+                                            chunk_idx=i2)
+                        n.replica.put(name, d1.join(d2))
+                        replay.write(name, i1, v1,
+                                     make_version(d1.lamport, rank))
+                        replay.write(name, i2, v2,
+                                     make_version(d2.lamport, rank))
+                await wait_converged(nodes, timeout=NET_ROUND_TIMEOUT,
+                                     poll=NET_POLL, settle=agreed)
+                sync()
+                wall = time.perf_counter() - t
+                d = diff(totals(nodes), before)
+                h2d = [b for _, b in ingests[first:]]
+                d["h2d_per_ingest"] = (sum(h2d) / len(h2d) if h2d
+                                       else 0.0)
+                d["wall_s"] = wall
+                d["largest_frame"] = largest[1]
+                d["host_s"] = dict(host_s)
+                rounds.append(d)
+                log(f"net store round {rnd}: {wall:.3f} s, frames "
+                    f"{d['frames']}, bytes {d['bytes']}, largest frame "
+                    f"{largest[1]} B of {max_frame[0]}, ingests "
+                    f"{d['ingests']}, h2d/ingest {d['h2d_per_ingest']:.0f} "
+                    f"B, queue drops {d['queue_drops']}, host s in ticks, "
+                    f"frames by kind and digest polls {host_s}")
+            for n in nodes:
+                n.check_healthy()
+            return nodes, rounds
+        except BaseException:
+            await stop_cluster(nodes)
+            raise
+
+    dj.reset_launches()
+    snap = ops.counters.snapshot()
+    reg0 = _kernel_launch_total(registry, "net-store")
+    uninstall = trace_kernel_launches(tracer)
+    t0 = time.perf_counter()
+    try:
+        loop = asyncio.new_event_loop()
+        try:
+            nodes, rounds = loop.run_until_complete(scenario())
+            stores = [n.replica.store for n in nodes]
+            joined = stores[0].join(stores[1])   # state-based full merge
+            sync()
+            loop.run_until_complete(stop_cluster(nodes))
+        finally:
+            loop.close()
+    finally:
+        uninstall()
+    wall = time.perf_counter() - t0
+    launches = dict(dj.launches)
+    ops_launches = ops.counters.since(snap)["launches"]
+    reg_launches = _kernel_launch_total(registry, "net-store") - reg0
+    traced = {}
+    for e in tracer.events():
+        if e["kind"] == "kernel_launch":
+            traced[e["op"]] = traced.get(e["op"], 0) + 1
+    log(f"net store path: {wall:.3f} s; kernel launches {launches}; traced "
+        f"{traced}; ops.counters {ops_launches}; "
+        f"repro_kernel_launches_total {reg_launches}; largest frame "
+        f"{largest[0]} B of {max_frame[0]}")
+    if sum(traced.values()) != ops_launches or reg_launches != ops_launches:
+        raise AssertionError("traced launches, ops.counters and the "
+                             "registry disagree")
+    if dev != "cpu" and any(traced.get(k, 0) != v
+                            for k, v in launches.items()):
+        raise AssertionError("traced launches differ from the kernels' "
+                             "own counts")
+    if max_frame[0] != MAX_FRAME or largest[0] > MAX_FRAME:
+        raise AssertionError(f"a frame of {largest[0]} B against a "
+                             f"{max_frame[0]} B limit")
+    if any(r["queue_drops"] for r in rounds):
+        raise AssertionError("the send queues dropped frames")
+    for n, s in zip(IDS, stores):
+        check_against_replay(s, replay, dev, f"net member {n}")
+    check_against_replay(joined, replay, dev, "net a ⊔ b")
+    log("net members equal each other and the numpy replay")
+    # an ingest stages its frame's columns and a padded row index, never
+    # the store: host→device bytes stay within 1% of the frame's length
+    over = [(f, b) for f, b in ingests if b > 1.01 * f]
+    if over or not ingests:
+        raise AssertionError(f"ingests staged more than their frames "
+                             f"(frame B, h2d B): {over[:4]}")
+    log(f"net store ingests: {len(ingests)}, h2d per ingest "
+        f"{min(b for _, b in ingests)}–{max(b for _, b in ingests)} B for "
+        f"frames of {min(f for f, _ in ingests)}–"
+        f"{max(f for f, _ in ingests)} B")
+    return {"wall_s": wall, "rounds": rounds, "launches": launches,
+            "traced": traced, "largest_frame": largest[0]}
+
+
+def _free_ports(n, kind) -> list:
+    """``n`` loopback ports the OS reports free for ``kind`` sockets."""
+    import socket
+    socks = [socket.socket(socket.AF_INET, kind) for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def net_sessions_path(dev) -> dict:
+    """Three OS processes of ``python -m repro_torch.launch.serve
+    --listen … --peers …`` gossip ``NET_SESSIONS`` session keys over
+    lossy UDP on loopback; every status file must show ``all_done``, every
+    key and one fingerprint, with the ``repro_net_*`` families in each
+    metrics snapshot. Then the in-process ``serve --sessions 64
+    --session-ttl 5`` on the simulator must reap every session."""
+    import contextlib
+    import io
+    import os
+    import socket
+    import subprocess
+    import tempfile
+    from repro_torch.launch import serve
+
+    ports = _free_ports(len(IDS), socket.SOCK_DGRAM)
+    members = [f"gw{k}@127.0.0.1:{p}" for k, p in enumerate(ports)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        status = [Path(tmp) / f"gw{k}.json" for k in range(len(IDS))]
+        logs = [open(Path(tmp) / f"gw{k}.log", "w")
+                for k in range(len(IDS))]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve",
+             "--device", dev, "--listen", me,
+             "--peers", ",".join(m for m in members if m != me),
+             *NET_SESSION_ARGS, "--run-for", str(NET_RUN_FOR),
+             "--status-file", str(st)], cwd=ROOT, env=env,
+            stdout=lg, stderr=subprocess.STDOUT)
+            for me, st, lg in zip(members, status, logs)]
+        try:
+            seen = None
+            while time.perf_counter() - t0 < NET_WAIT_S:
+                if any(p.poll() not in (None, 0) for p in procs):
+                    break
+                try:
+                    seen = [json.loads(st.read_text()) for st in status]
+                except (FileNotFoundError, json.JSONDecodeError):
+                    seen = None
+                if seen and all(s["all_done"] and s["keys"] == NET_SESSIONS
+                                for s in seen) \
+                        and len({s["fingerprint"] for s in seen}) == 1:
+                    break
+                time.sleep(0.1)
+            wall = time.perf_counter() - t0
+            for p in procs:
+                p.wait(timeout=NET_RUN_FOR + 60)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for lg in logs:
+                lg.close()
+        text = [(Path(tmp) / f"gw{k}.log").read_text()
+                for k in range(len(IDS))]
+        final = [json.loads(st.read_text()) if st.exists() else None
+                 for st in status]
+    for k, t in enumerate(text):
+        log(f"  serve gw{k}: " + t.strip().replace("\n", "\n  serve: "))
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError("a serve process of the UDP session cluster "
+                             f"failed: {[p.returncode for p in procs]}")
+    if not seen or not all(s["all_done"] and s["keys"] == NET_SESSIONS
+                           for s in seen) \
+            or len({s["fingerprint"] for s in seen}) != 1:
+        raise AssertionError(f"the UDP session cluster did not agree "
+                             f"within {NET_WAIT_S} s: {seen}")
+    for s in final:
+        missing = [f for f in ("repro_net_frames_sent_total",
+                               "repro_net_bytes_by_kind_total",
+                               "repro_net_bytes_recv_total")
+                   if f not in s.get("metrics", {})]
+        if missing:
+            raise AssertionError(f"{s['id']}: metrics lack {missing}")
+    by_kind = {}                        # sent until the cluster agreed
+    for s in seen:
+        for k, v in s["bytes_by_kind"].items():
+            by_kind[k] = by_kind.get(k, 0) + v
+    out["udp_cluster"] = {"converged_s": wall, "bytes_by_kind": by_kind,
+                          "fingerprint": seen[0]["fingerprint"]}
+    log(f"net sessions: 3 processes over UDP (10% loss) agreed on "
+        f"{NET_SESSIONS} sessions, fingerprint {seen[0]['fingerprint']}, "
+        f"{wall:.3f} s from launch; frame bytes by kind {by_kind}")
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve.main(["--device", dev, "--batch", "2", "--prompt-len", "16",
+                    "--gen", "4", "--sessions", str(TTL_SESSIONS),
+                    "--session-ttl", str(TTL_SECONDS)])
+    wall = time.perf_counter() - t0
+    printed = buf.getvalue()
+    log("  " + printed.strip().replace("\n", "\n  "))
+    want = (f"all {TTL_SESSIONS} sessions expired and were reaped by "
+            "their owners' ack quorum")
+    if want not in printed:
+        raise AssertionError(f"serve --session-ttl did not reap: {printed}")
+    out["ttl_wall_s"] = wall
+    log(f"ttl sessions: {wall:.3f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 6. Dot stores: the columnar causal join, its containment mask, reconnect
 # ---------------------------------------------------------------------------
 
@@ -1490,6 +1900,17 @@ def main() -> int:
     topk_check(a, dev)
     del reps, a, b, joined
     torch.cuda.empty_cache()
+
+    net = net_store_path(dev, tensors)
+    for name, n in net["launches"].items():
+        launches[name] += n
+        if not n:
+            raise AssertionError(f"{name} never launched on the net store "
+                                 "path")
+    timings["net_store"] = {k: net[k] for k in ("wall_s", "rounds",
+                                                 "largest_frame")}
+    torch.cuda.empty_cache()
+    timings["net_sessions"] = net_sessions_path(dev)
 
     timings["dots"] = dots_path(dev)
 

@@ -14,8 +14,7 @@
 * ``propagation``    — the replica engine and its shipping policies.
 * ``antientropy``    — Algorithms 1 and 2 over the engine.
 * ``sim``            — the §2 network model as a discrete-event simulator.
-
-Hierarchical gossip arrives with a later slice.
+* ``hiergossip``     — zone-aware hierarchical gossip over a topology.
 """
 
 from .dots import CausalContext, Dot, DotFun, DotMap, DotSet, causal_join
@@ -33,6 +32,7 @@ from .propagation import (AvoidBackPropagation, Compose, DeltaEntry,
 from .antientropy import (BasicNode, CausalNode, FullStateNode, converged,
                           run_to_convergence)
 from .sim import NetConfig, NetStats, Node, Simulator, structural_size
+from .hiergossip import HierarchicalGossip, hierarchical_policy
 
 __all__ = [
     "CausalContext", "Dot", "DotFun", "DotMap", "DotSet", "causal_join",
@@ -49,4 +49,5 @@ __all__ = [
     "BasicNode", "CausalNode", "FullStateNode", "converged",
     "run_to_convergence",
     "NetConfig", "NetStats", "Node", "Simulator", "structural_size",
+    "HierarchicalGossip", "hierarchical_policy",
 ]

@@ -9,7 +9,8 @@ byte the JAX package's format.
   index; decoding yields zero-copy sparse row views, optionally uploaded
   to the device at decode time.
 
-Membership (``ClusterState``) and top-k frames arrive with later slices.
+Membership (``ClusterState``) frames ride as opaque bodies under frame
+kind ``membership``; top-k frames arrive with slice D.
 """
 
 from .codec import (decode_digest, decode_store, decode_value,

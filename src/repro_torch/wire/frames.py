@@ -2,7 +2,7 @@
 
 Every payload kind the :class:`~repro_torch.core.propagation.Replica` engine
 ships — store delta-intervals, full-state fallbacks, acks, digest
-summaries, membership gossip, rebalance handoffs, top-k compression
+summaries, membership gossip (``ClusterState``), rebalance handoffs, top-k compression
 payloads — travels as one frame::
 
     offset  size  field
@@ -324,7 +324,14 @@ class WireCodec:
                 len(buf) - HEADER_SIZE - _DELTA_CAUSAL.size)
             if ghost is not None:
                 _emit_value(buf, ghost, self.compress)
-        return _seal(buf, "state" if full_state else "delta")
+        return _seal(buf, self._payload_kind(msg[1], full_state))
+
+    @staticmethod
+    def _payload_kind(value, full_state: bool) -> str:
+        from ..sync.membership import ClusterState   # lazy: sync imports core
+        if isinstance(value, ClusterState):
+            return "membership"
+        return "state" if full_state else "delta"
 
     def decode_msg(self, frame) -> Tuple:
         from .codec import decode_digest, decode_store, decode_value
@@ -345,10 +352,7 @@ class WireCodec:
             return ("digest", decode_digest(payload))
         if kind == "digest-resp":
             return ("digest-resp", decode_store(payload, **dev))
-        if kind == "membership":
-            raise NotImplementedError("membership (ClusterState) frames "
-                                      "arrive with slice C of the port")
-        if kind in ("delta", "state"):
+        if kind in ("delta", "state", "membership"):
             mode = payload[0]
             if mode == 0:
                 _, plen = _DELTA_BASIC.unpack_from(payload, 0)

@@ -420,3 +420,137 @@ def test_auto_dispatched_mask_launches_on_the_card_and_counts_staging(card):
     assert moved["d2h_bytes"] == dots.size
     dotcols.missing_mask(vv, cloud, dots[:-1])
     assert dotcols.launches["missing_mask"] == before + 1
+
+
+# ---------------------------------------------------------------------------
+# Resident stores gossiping over TCP loopback
+# ---------------------------------------------------------------------------
+
+NET_KEYS = 4
+NET_ROWS = 1024                         # per key: [4096, 1024] f32 in all
+NET_CHUNK = 1024
+
+
+def _net_store_run(dev, policy, rounds, rows_per_write, seed):
+    """Three ``GossipNode``s over TCP on loopback, each with a resident
+    basic-mode store on ``dev`` that loaded the same initial state; each
+    round every member writes ``rows_per_write`` rows of one key (a
+    delta-group of two δ-mutations) and the mesh gossips until every
+    version digest agrees. Returns the stores, a numpy last-writer-wins
+    replay of every write, and the kernel launches the run made, read
+    from the kernels' own counts and from ``trace_kernel_launches``."""
+    import asyncio
+    import random
+
+    from repro_torch.core import LatticeStore, StoreReplica, TensorState
+    from repro_torch.core.digest import store_digest
+    from repro_torch.core.propagation import make_policy, stable_seed
+    from repro_torch.core.tensor_lattice import ChunkedTensor, make_version
+    from repro_torch.net import start_cluster, stop_cluster, wait_converged
+    from repro_torch.obs import Tracer, trace_kernel_launches
+    from repro_torch.wire import WireCodec
+
+    rng = np.random.default_rng(seed)
+    init = rng.standard_normal((NET_KEYS, NET_ROWS, NET_CHUNK),
+                               dtype=np.float32)
+    want_vals = init.copy()
+    want_vers = np.full((NET_KEYS, NET_ROWS), make_version(1, 0), np.int32)
+
+    def factory(node_id, neighbors):
+        return StoreReplica(
+            node_id, list(neighbors), causal=False, resident=True,
+            device=dev, wire=WireCodec(to_device=True, device=dev),
+            policy=make_policy(policy),
+            rng=random.Random(stable_seed(node_id)))
+
+    async def scenario():
+        nodes = await start_cluster(3, transport="tcp", tick=0.05,
+                                    replica_factory=factory,
+                                    start_gossip=False, seed=seed)
+        try:
+            for n in nodes:
+                n.replica.operation(lambda _s: LatticeStore.of({
+                    f"k{k}": TensorState.of({"w": ChunkedTensor(
+                        torch.from_numpy(init[k]), torch.full(
+                            (NET_ROWS,), make_version(1, 0),
+                            dtype=torch.int32))}, lamport=1)
+                    for k in range(NET_KEYS)}))
+            for n in nodes:
+                await n.start()
+
+            def agreed():
+                d0 = store_digest(nodes[0].replica.store)
+                return all(store_digest(n.replica.store) == d0
+                           for n in nodes[1:])
+
+            for _ in range(rounds):
+                for rank, n in enumerate(nodes):
+                    k = int(rng.integers(NET_KEYS))
+                    sel = np.sort(rng.choice(NET_ROWS, rows_per_write,
+                                             replace=False))
+                    cut = rows_per_write * 5 // 8
+                    i1, i2 = sel[:cut], sel[rows_per_write - cut:]
+                    v1 = rng.standard_normal((len(i1), NET_CHUNK),
+                                             dtype=np.float32)
+                    v2 = rng.standard_normal((len(i2), NET_CHUNK),
+                                             dtype=np.float32)
+                    cur = n.replica.get(f"k{k}", TensorState)
+                    d1 = cur.write_delta(rank, "w", torch.from_numpy(v1)
+                                         .to(dev), chunk_idx=i1)
+                    d2 = d1.write_delta(rank, "w", torch.from_numpy(v2)
+                                        .to(dev), chunk_idx=i2)
+                    n.replica.put(f"k{k}", d1.join(d2))
+                    for idx, v, d in ((i1, v1, d1), (i2, v2, d2)):
+                        ver = make_version(d.lamport, rank)
+                        take = ver > want_vers[k, idx]
+                        want_vals[k, idx[take]] = v[take]
+                        want_vers[k, idx[take]] = ver
+                await wait_converged(nodes, timeout=60.0, poll=0.02,
+                                     settle=agreed)
+            if torch.device(dev).type == "cuda":
+                torch.cuda.synchronize()
+            for n in nodes:
+                n.check_healthy()
+            return [n.replica.store for n in nodes]
+        finally:
+            await stop_cluster(nodes)
+
+    tracer = Tracer(node="net", capacity=1 << 16)
+    before = dict(dj.launches)
+    uninstall = trace_kernel_launches(tracer)
+    try:
+        stores = asyncio.run(scenario())
+    finally:
+        uninstall()
+    launched = {k: dj.launches[k] - before[k] for k in before}
+    traced = {}
+    for e in tracer.events():
+        traced[e["op"]] = traced.get(e["op"], 0) + 1
+    return stores, want_vals, want_vers, launched, traced
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rounds,rows_per_write", [(4, 64), (2, 512)])
+def test_resident_stores_converge_over_tcp_equal_to_the_replay(
+        card, rounds, rows_per_write):
+    """Under ``digest-sync``: basic-mode push policies re-ship the whole
+    store whenever their buffer is empty (``ROADMAP.md`` §3), which at
+    16 MB a member every tick floods loopback."""
+    from repro_torch.kernels import resident
+
+    stores, vals, vers, launched, traced = _net_store_run(
+        "cuda", "digest-sync", rounds=rounds,
+        rows_per_write=rows_per_write, seed=3 + rounds)
+    for store in stores:
+        cache = resident.ensure(store, "cuda")
+        assert [(key, s, e) for key, _, s, e in cache.layout] == [
+            (f"k{k}", k * NET_ROWS, (k + 1) * NET_ROWS)
+            for k in range(NET_KEYS)]
+        assert np.array_equal(cache.vers.cpu().numpy(), vers.reshape(-1))
+        assert np.array_equal(cache.vers_host, vers.reshape(-1))
+        got = cache.vals.cpu().numpy().reshape(vals.shape)
+        assert np.array_equal(got.view(np.int32), vals.view(np.int32))
+    assert launched["scatter_join"] > 0 and launched["delta_join"] > 0
+    assert launched["chunk_digest"] > 0
+    for name, n in launched.items():
+        assert traced.get(name, 0) == n, (name, n, traced)

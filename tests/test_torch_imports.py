@@ -9,6 +9,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parents[1]
 
 PROBE = r"""
@@ -62,3 +64,17 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                              env=env)
         assert out.returncode != 0
         assert '"ok": true' not in out.stdout
+
+
+@pytest.mark.parametrize("name", [
+    "topology", "core.hiergossip", "lifecycle.reaper", "sync",
+    "sync.membership", "sync.metrics", "obs", "obs.registry", "obs.trace",
+    "obs.probes", "obs.scrape", "obs.analyze", "net", "net.stats",
+    "net.transport", "net.node",
+])
+def test_replication_stack_modules_are_walked(name):
+    """The modules of the replication stack are part of the package the
+    probe above imports with ``jax`` and ``repro`` blocked."""
+    walked = {m.name for m in pkgutil.walk_packages(
+        [str(ROOT / "src" / "repro_torch")], "repro_torch.")}
+    assert f"repro_torch.{name}" in walked

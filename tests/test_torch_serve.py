@@ -3,11 +3,18 @@ prints the JAX package's serve.py lines; its prompt is that script's (same
 ``--seed``, same token ids); its greedy loop, given the JAX package's
 parameters, yields the JAX loop's tokens; teacher forcing with its own
 tokens reproduces a run; ``--replicate`` gossips the batch's session
-table to every status "done"; and keyed sessions and socket mode, which
-wait for slice C, exit with an error naming it."""
+table to every status "done"; ``--sessions`` (with ``--session-ttl``)
+prints the JAX package's per-gateway key counts, frame bytes and
+tombstone counts on the same seed; and three socket-mode processes on
+loopback agree on one session fingerprint through ``--status-file``."""
 
+import argparse
 import ast
+import contextlib
+import io
+import json
 import os
+import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -19,6 +26,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as jget_config
+from repro.launch import serve as jserve
 from repro.models import decode_step as jdecode_step
 from repro.models import init_model as jinit_model
 from repro.models import prefill as jprefill
@@ -76,9 +84,6 @@ def test_replicate_rejects_a_basic_mode_policy(capsys):
 
 
 @pytest.mark.parametrize("argv, slice_", [
-    (["--sessions", "8"], "slice C"),
-    (["--listen", "127.0.0.1:7000", "--peers", "b@127.0.0.1:7001"],
-     "slice C"),
     (["--arch", "gemma2-27b"], "slice E"),
 ])
 def test_unported_modes_exit_naming_their_slice(argv, slice_, capsys):
@@ -137,3 +142,114 @@ def test_teacher_forcing_with_own_tokens_reproduces_the_run():
     np.testing.assert_array_equal(forced.tokens, run.tokens)
     for a, b in zip(forced.logits, run.logits):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Keyed sessions, the key lifecycle and socket mode
+# ---------------------------------------------------------------------------
+
+def _keyed_lines(module, **kw):
+    args = argparse.Namespace(**{
+        "replicate": 0, "session_replication": 2, "session_ttl": None,
+        "ship_policy": "bp+rr", "seed": 0, "wire": True, **kw})
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        module._keyed_sessions(args)
+    return buf.getvalue().splitlines()
+
+
+@pytest.mark.parametrize("kw", [
+    dict(sessions=24, session_ttl=5.0),
+    dict(sessions=24),
+    dict(sessions=40, session_ttl=6.0, seed=4,
+         ship_policy="bp+rr+digest-sync:4"),
+    dict(sessions=16, replicate=4, session_replication=3, seed=2),
+    dict(sessions=30, session_ttl=5.0, seed=1, ship_policy="digest-sync"),
+    dict(sessions=12, wire=False, seed=3),
+], ids=["ttl", "no-ttl", "hybrid-ttl", "4-gateways", "digest-sync-ttl",
+        "objects"])
+def test_keyed_sessions_print_the_reference_lines(kw):
+    """Per-gateway key counts, frame bytes and tombstone counts equal the
+    JAX package's, line for line. Object mode (``--no-wire``) reports
+    structural atoms of each package's own objects, which differ by
+    design: there the key counts and the line's shape are held equal."""
+    got, want = _keyed_lines(serve, **kw), _keyed_lines(jserve, **kw)
+    if kw.get("wire", True):
+        assert got == want
+    else:
+        assert got[0] == want[0]
+        assert got[1].split("payload_atoms")[0] \
+            == want[1].split("payload_atoms")[0]
+    assert len(got) == (3 if kw.get("session_ttl") else 2)
+
+
+def test_sessions_ttl_cli_on_the_cpu_prints_the_reference_lines():
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--batch", "2", "--prompt-len", "8", "--gen", "3", "--sessions",
+         "24", "--session-ttl", "5"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()[3:]
+    assert lines == _keyed_lines(jserve, sessions=24, session_ttl=5.0)
+    assert "all 24 sessions expired and were reaped" in lines[2]
+
+
+def test_socket_mode_rejects_bad_member_lists(capsys):
+    with pytest.raises(SystemExit) as e:
+        serve.main(["--device", "cpu", "--listen", "a@127.0.0.1:7000"])
+    assert e.value.code == 2
+    assert "BOTH" in capsys.readouterr().err
+    with pytest.raises(SystemExit) as e:
+        serve.main(["--device", "cpu", "--listen", "a@127.0.0.1:7000",
+                    "--peers", "b@127.0.0.1:7001", "--no-wire"])
+    assert e.value.code == 2
+
+
+def _free_udp_ports(n):
+    socks = [socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+             for _ in range(n)]
+    try:
+        for sk in socks:
+            sk.bind(("127.0.0.1", 0))
+        return [sk.getsockname()[1] for sk in socks]
+    finally:
+        for sk in socks:
+            sk.close()
+
+
+def test_three_socket_processes_agree_on_one_fingerprint(tmp_path):
+    """Three ``serve --listen/--peers`` processes on loopback UDP with
+    10% injected loss: every status file reaches every session "done"
+    under one fingerprint, and the ``--metrics`` snapshot carries the
+    ``repro_net_*`` families."""
+    n_sessions = 12
+    members = [f"gw{k}@127.0.0.1:{p}"
+               for k, p in enumerate(_free_udp_ports(3))]
+    status = [tmp_path / f"gw{k}.json" for k in range(3)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--listen", me, "--peers", ",".join(m for m in members if m != me),
+         "--sessions", str(n_sessions), "--ship-policy",
+         "bp+rr+digest-sync:4", "--udp-loss", "0.1", "--tick", "0.05",
+         "--run-for", "8", "--status-file", str(st), "--metrics"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for me, st in zip(members, status)]
+    try:
+        outs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err
+        assert f"done: {n_sessions}/{n_sessions} keys resident" in out
+    seen = [json.loads(st.read_text()) for st in status]
+    assert all(s["all_done"] and s["keys"] == n_sessions for s in seen)
+    assert len({s["fingerprint"] for s in seen}) == 1
+    for s in seen:
+        assert "repro_net_frames_sent_total" in s["metrics"]
+        assert s["bytes_by_kind"].get("delta", 0) > 0
