@@ -95,6 +95,30 @@ NVIDIA card. Run from the root of a checkout:
    replicates its session table over 3 gateways (every status "done"),
    and each model is served 5 more times on each attention path, in
    turns, for medians of prefill time and decode rate with their spread.
+8. Train path: ``repro_torch.launch.train``'s ``run_sync`` trains
+   qwen1.5-0.5b at full width (bf16 params, f32 master and moments,
+   batch 8 × 128 tokens, lr 1e-3, random weights from seed 0) for 20
+   steps under ``torch.use_deterministic_algorithms``, writing a snapshot
+   at step 6 and full-state deltas at steps 12 and 18 into
+   ``build/train_ckpt`` (≈6.5 GB each; the free disk is checked first,
+   the directory deleted after). Per step: loss, seconds, tokens/s; the
+   peak device memory; two more steps traced for the card's busy share.
+   The loss must start within 0.5 of ln(151,936) and fall (the mean of
+   the last four steps 0.02 nats below the first four's). The same
+   command then resumes from the directory: restore = snapshot ⊔ d1 ⊔ d2
+   on the card must launch ``delta_join`` exactly 114 times (57 leaves ×
+   2 deltas), the restored state must equal the live state at step 18
+   and a restore joined by the plain version on the card bit for bit,
+   and steps 18 and 19 must print the uninterrupted run's losses
+   exactly.
+9. Delta mode: ``run_delta`` on the card at the JAX package's smoke size
+   (REDUCED config, 2 pods, 2 local steps, 4 steps, top-k 0.1, bp+rr)
+   converges with 4 dots merged.
+10. Top-k: ``TopKCompressor(0.01).compress`` over qwen1.5-0.5b's
+   parameters in f32 on the card, per-leaf times of the stable sort
+   (and of ``torch.topk``'s selection, a yardstick, where the embedding's
+   sort passes 50 ms); the embedding's and one stacked leaf's indices and
+   values bit-equal to a stable CPU argsort.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase
 raises and the script exits non-zero without it, as it does when no card
@@ -104,6 +128,7 @@ is present.
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -200,6 +225,32 @@ NET_RUN_FOR = 20.0
 NET_WAIT_S = 90.0
 TTL_SESSIONS = 64
 TTL_SECONDS = 5
+# the training phases (slices E-train and D): ``launch.train --mode sync``
+# at full width, 20 steps with a checkpoint every 6 (snapshot seq 0 at
+# step 6, deltas seq 1 and 2 at steps 12 and 18), then the same command
+# resumed from the directory, which must rerun steps 18 and 19 from
+# snapshot ⊔ d1 ⊔ d2 — one delta_join launch per leaf per delta past the
+# snapshot: 57 leaves (14 parameters; m, v and master of each; the step).
+# The synthetic stream's next token is a function of the previous one,
+# but at a 151,936-token vocabulary a step's 1,024 tokens are almost all
+# new to the model, so in 20 steps the loss can only fall from the random
+# head's ≈ln(vocab) + 0.2 toward ln(vocab): the check compares the means
+# of the first and the last four steps
+TRAIN_ARGS = ("--arch", "qwen1.5-0.5b", "--device", "cuda", "--batch", "8",
+              "--seq", "128", "--steps", "20", "--ckpt-every", "6",
+              "--snap-every", "3", "--log-every", "1", "--lr", "1e-3")
+TRAIN_LEAVES = 57
+TRAIN_RESTORE_JOINS = 2 * TRAIN_LEAVES      # two deltas past the snapshot
+TRAIN_RESUME_STEP = 18
+TRAIN_DIR = ROOT / "build" / "train_ckpt"
+TRAIN_DISK_BYTES = 24 << 30     # three 6.5 GB files and a temp file
+TRAIN_LOSS_DROP = 0.02          # nats, mean of the last 4 below the first 4
+TRAIN_TRACED_STEPS = 2
+DELTA_ARGS = ("--mode", "delta", "--device", "cuda", "--pods", "2",
+              "--local-steps", "2", "--steps", "4", "--topk", "0.1",
+              "--ship-policy", "bp+rr")
+TOPK_RATE = 0.01
+TOPK_SELECT_IF_MS = 50.0        # time a selection beside the sort past this
 
 
 def log(*parts) -> None:
@@ -1717,6 +1768,7 @@ def serve_path(dev) -> dict:
     from repro_torch.launch.serve import (generate, make_prompt,
                                           replicate_sessions)
     from repro_torch.models import init_model
+    from repro_torch.tree import leaves
 
     launches = {"flash_attention": 0, "flash_decode": 0}
     out = {}
@@ -1724,7 +1776,7 @@ def serve_path(dev) -> dict:
         cfg = dataclasses.replace(get_config(arch), attn_impl="chunked")
         t0 = time.perf_counter()
         params = init_model(cfg, SEED, device=dev)
-        n_params = sum(t.numel() for t in _leaves(params))
+        n_params = sum(t.numel() for t in leaves(params))
         prompt, _ = make_prompt(cfg, b, prompt_len, SEED, dev)
         generate(cfg, params, prompt, 2)          # warm-up, not counted
         torch.cuda.synchronize()
@@ -1851,15 +1903,244 @@ def serve_repeats(arch, cfg, plain_cfg, params, prompt, b, prompt_len,
     return out
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
+# ---------------------------------------------------------------------------
+# 8-10. Training: sync mode with checkpoints and resume, delta mode, top-k
+# ---------------------------------------------------------------------------
+
+def _state_bits_equal(a, b, what) -> None:
+    """Two ``TensorState``s hold the same names, and bit for bit the
+    same values and versions (on the card)."""
+    import torch
+    ca, cb = a.as_dict(), b.as_dict()
+    if list(ca) != list(cb):
+        raise AssertionError(f"{what}: different tensors")
+    for name in ca:
+        x, y = ca[name], cb[name]
+        if x.values.dtype != y.values.dtype or not (
+                torch.equal(_bits(x.values), _bits(y.values.to(
+                    x.values.device)))
+                and torch.equal(x.versions, y.versions.to(
+                    x.versions.device))):
+            raise AssertionError(f"{what}: {name} differs")
+
+
+def plain_restore(directory: Path, dev):
+    """``DeltaCheckpointStore.restore`` with the plain ``delta_join`` on
+    the card: the snapshot's and every later delta's columns loaded onto
+    ``dev`` and joined leaf by leaf with ``ref.delta_join_ref``."""
+    from repro_torch.checkpoint.store import _state_from_npz
+    from repro_torch.core.tensor_lattice import ChunkedTensor, TensorState
+    from repro_torch.kernels import ref
+    manifest = json.loads((directory / "manifest.json").read_text())
+    snap = max(manifest["snapshots"])
+    state = _state_from_npz(str(directory / f"snapshot-{snap:08d}.npz"),
+                            dev)
+    cols, lamport = state.as_dict(), state.lamport
+    for seq in sorted(manifest["deltas"]):
+        if seq <= snap:
+            continue
+        delta = _state_from_npz(str(directory / f"delta-{seq:08d}.npz"), dev)
+        for name, ct in delta.chunks:
+            cols[name] = ChunkedTensor(*ref.delta_join_ref(
+                cols[name].values, cols[name].versions, ct.values,
+                ct.versions))
+        lamport = max(lamport, delta.lamport)
+        del delta
+    return TensorState.of(cols, lamport=lamport)
+
+
+def train_path(dev) -> dict:
+    """``launch.train --mode sync`` at full width on the card (steps,
+    checkpoints, a resume through the ``delta_join`` kernel), under
+    ``torch.use_deterministic_algorithms`` so the resumed steps must
+    reproduce the uninterrupted run's losses exactly."""
+    import shutil
+    import torch
+    from repro_torch.kernels import delta_join as dj
+    from repro_torch.launch import train
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import TrainConfig, make_train_step
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    TRAIN_DIR.mkdir(parents=True)
+    free = shutil.disk_usage(TRAIN_DIR).free
+    log(f"train: checkpoint directory {TRAIN_DIR} has {free / 2**30:.1f} "
+        f"GiB free (needs {TRAIN_DISK_BYTES / 2**30:.0f})")
+    if free < TRAIN_DISK_BYTES:
+        raise AssertionError("not enough disk for the training checkpoints")
+    argv = list(TRAIN_ARGS) + ["--ckpt-dir", str(TRAIN_DIR)]
+    args = train.parse_args(argv)
+    cfg = get_config(args.arch, reduced=args.reduced)
+    out = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        first = train.run_sync(args)
+        torch.cuda.synchronize()
+        out["run_s"] = time.perf_counter() - t0
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses, step_s = first["losses"], first["step_s"]
+        tokens = args.batch * args.seq
+        for k, (loss, sec) in enumerate(zip(losses, step_s)):
+            log(f"  train step {k}: loss={loss:.6f} step_s={sec:.4f} "
+                f"tokens_per_s={tokens / sec:.1f}")
+        steady = float(np.median(step_s[1:]))
+        out.update(loss_first=losses[0], loss_last=losses[-1],
+                   step_s_median=steady, tokens_per_s=tokens / steady,
+                   ckpt_s=first["ckpt_s"])
+        log(f"train {cfg.name} sync (batch {args.batch} × seq "
+            f"{args.seq}): loss {losses[0]:.4f} → {losses[-1]:.4f} "
+            f"(ln vocab = {np.log(cfg.vocab):.4f}); median step "
+            f"{steady:.4f} s = {tokens / steady:.1f} tokens/s; peak "
+            f"{out['peak_gib']:.2f} GiB; checkpoint writes "
+            + ", ".join(f"{t:.2f}" for t in first["ckpt_s"]) + " s")
+        out["loss_drop"] = float(np.mean(losses[:4]) - np.mean(losses[-4:]))
+        log(f"train loss: mean of the first 4 steps minus the last 4 = "
+            f"{out['loss_drop']:.4f} nats")
+        if not (abs(losses[0] - np.log(cfg.vocab)) < 0.5
+                and out["loss_drop"] > TRAIN_LOSS_DROP):
+            raise AssertionError("the training loss did not fall from "
+                                 "ln(vocab)")
+
+        # where a step's time goes: two more steps, traced
+        step_fn = make_train_step(cfg, TrainConfig(optimizer=AdamWConfig(
+            lr=args.lr, warmup_steps=max(10, args.steps // 20),
+            total_steps=args.steps)))
+        batch = train._batch(SyntheticLMStream(
+            vocab=cfg.vocab, seq=args.seq, batch=args.batch,
+            seed=args.seed), 0, dev)
+        out["traced"] = _traced(
+            f"train step {cfg.name}",
+            [lambda: step_fn(first["params"], first["opt_state"], batch)]
+            * TRAIN_TRACED_STEPS, ("gemm", "nvjet"))
+        live = first["last_checkpoint"]
+        del first, step_fn, batch
+        torch.cuda.empty_cache()
+
+        # crash and resume: the same command again, from the directory
+        if len(live.chunks) != TRAIN_LEAVES:
+            raise AssertionError(f"{len(live.chunks)} checkpoint leaves, "
+                                 f"expected {TRAIN_LEAVES}")
+        before = dj.launches["delta_join"]
+        second = train.run_sync(train.parse_args(argv))
+        torch.cuda.synchronize()
+        joins = dj.launches["delta_join"] - before
+        log(f"train resume: started at step {second['start_step']}, "
+            f"restore {second['restore_s']:.3f} s, delta_join launches "
+            f"{joins} (predicted {TRAIN_RESTORE_JOINS}), losses "
+            + ", ".join(f"{v:.6f}" for v in second["losses"]))
+        if second["start_step"] != TRAIN_RESUME_STEP:
+            raise AssertionError("the resumed run started at the wrong step")
+        if joins != TRAIN_RESTORE_JOINS:
+            raise AssertionError("restore launched delta_join a number of "
+                                 "times other than predicted")
+        if second["losses"] != losses[TRAIN_RESUME_STEP:]:
+            raise AssertionError("the resumed steps' losses differ from "
+                                 "the uninterrupted run's")
+        restored = second["restored"]
+        _state_bits_equal(restored, live, "restored vs live checkpoint")
+        del second
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = plain_restore(TRAIN_DIR, dev)
+        torch.cuda.synchronize()
+        out["plain_restore_s"] = time.perf_counter() - t0
+        _state_bits_equal(restored, plain, "kernel vs plain restore")
+        log(f"train restore: bit-equal to the live state at step "
+            f"{TRAIN_RESUME_STEP} and to the plain-version restore "
+            f"({out['plain_restore_s']:.3f} s); resumed losses equal the "
+            "uninterrupted run's")
+        out.update(restore_joins=joins, restored_leaves=len(live.chunks))
+        del restored, plain, live
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+        torch.cuda.empty_cache()
+    out["delta_join_launches"] = joins
+    return out
+
+
+def delta_path() -> dict:
+    """``launch.train --mode delta`` on the card at the JAX package's own
+    smoke size (REDUCED config, 2 pods, top-k payloads, bp+rr)."""
+    from repro_torch.launch import train
+    t0 = time.perf_counter()
+    run = train.run_delta(train.parse_args(list(DELTA_ARGS)))
+    wall = time.perf_counter() - t0
+    if run["dots"] != 4:
+        raise AssertionError(f"{run['dots']} dots merged, expected 4")
+    log(f"train delta mode: {wall:.3f} s, payload_atoms="
+        f"{run['payload_atoms']}, {run['dots']} dots merged")
+    return {"wall_s": wall, "payload_atoms": run["payload_atoms"]}
+
+
+def topk_path(dev) -> dict:
+    """``TopKCompressor(0.01).compress`` over qwen1.5-0.5b's parameters
+    in f32 on the card: per-leaf ``_topk_sparsify`` times (CUDA events,
+    card held, median of 5), the whole call's host time, and the
+    embedding and one stacked leaf bit-equal to a stable CPU argsort of
+    -|x| (ties to the lower index)."""
+    import dataclasses
+    import torch
+    from repro_torch import tree as tu
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    from repro_torch.sync import TopKCompressor
+    from repro_torch.sync.compression import _topk_sparsify
+
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b"), dtype="float32")
+    params = init_model(cfg, SEED + 2, device=dev)
+    pairs, _ = tu.flatten_with_path(params)
+    per_leaf = {}
+    for name, leaf in pairs:
+        k = max(1, int(round(TOPK_RATE * leaf.numel())))
+        per_leaf[name] = time_ms(lambda: _topk_sparsify(leaf, k), reps=5,
+                                 held=True)
+    comp = TopKCompressor(TOPK_RATE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sparse = comp.compress(params)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    emb = params["embed"]["tok"]
+    log(f"top-k {TOPK_RATE} over {len(pairs)} f32 leaves "
+        f"({sum(p.numel() for _, p in pairs)} elements): compress "
+        f"{total_s * 1e3:.3f} ms (host clock, synchronised); the leaves' "
+        f"sorts {sum(per_leaf.values()):.3f} ms (device); per leaf "
+        + ", ".join(f"{n}={t:.4f}" for n, t in per_leaf.items()) + " ms")
+    out = {"compress_ms": total_s * 1e3, "per_leaf_ms": per_leaf,
+           "embed_ms": per_leaf["['embed']['tok']"]}
+    if out["embed_ms"] > TOPK_SELECT_IF_MS:
+        k = max(1, int(round(TOPK_RATE * emb.numel())))
+        flat = emb.reshape(-1)
+        out["embed_select_ms"] = time_ms(lambda: torch.topk(flat.abs(), k),
+                                         reps=5, held=True)
+        log(f"top-k: the embedding's stable sort takes "
+            f"{out['embed_ms']:.3f} ms; torch.topk's selection (no tie "
+            f"rule, not used) {out['embed_select_ms']:.3f} ms")
+    for name, leaf, got in (
+            ("['embed']['tok']", emb, sparse["embed"]["tok"]),
+            ("['groups'][0][0]['mlp']['wi']", params["groups"][0][0]["mlp"]
+             ["wi"], sparse["groups"][0][0]["mlp"]["wi"])):
+        x = leaf.reshape(-1).cpu().numpy() + np.float32(0)
+        k = max(1, int(round(TOPK_RATE * x.size)))
+        t0 = time.perf_counter()
+        idx = np.argsort(-np.abs(x), kind="stable")[:k]
+        cpu_s = time.perf_counter() - t0
+        if not (np.array_equal(got["idx"].cpu().numpy(), idx.astype(
+                np.int32)) and got["vals"].cpu().numpy().tobytes()
+                == x[idx].tobytes()):
+            raise AssertionError(f"top-k of {name} differs from the stable "
+                                 "CPU argsort")
+        log(f"top-k {name}: {k} of {x.size} indices and values bit-equal "
+            f"to the stable CPU argsort ({cpu_s:.3f} s on the host)")
+    del params, sparse, comp
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1869,6 +2150,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    # cuBLAS reproducible under torch.use_deterministic_algorithms (the
+    # train phase), set before the first cuBLAS handle exists
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from repro_torch.kernels import delta_join as dj
 
     # full f32 products for every plain version held against a kernel
@@ -1917,6 +2201,12 @@ def main() -> int:
     served = serve_path(dev)
     launches.update(served["launches"])
     timings["serve"] = served["timings"]
+    torch.cuda.empty_cache()
+
+    timings["train"] = train_path(dev)
+    launches["delta_join"] += timings["train"]["delta_join_launches"]
+    timings["train_delta"] = delta_path()
+    timings["topk"] = topk_path(dev)
     missing = [k for k in TPU_KERNEL if launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on their path: "

@@ -31,7 +31,7 @@ dtype is read as bfloat16).
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterable, Mapping, Tuple
+from typing import Any, Dict, Iterable, Mapping, Tuple
 
 import numpy as np
 
@@ -40,6 +40,7 @@ from .core.dotcols import (SHAPE_FUN, SHAPE_SET, CausalContextCols,
 from .core.store import LatticeStore
 from .core.tensor_lattice import (ChunkedTensor, TensorState, sparse_chunks)
 from .dtypes import BF16_NP, to_numpy, to_torch
+from .tree import tree_map
 
 
 def _host(values) -> np.ndarray:
@@ -121,19 +122,11 @@ def dotstore_from_numpy(rids, dots, vv, cloud=(), *, vals=None, keys=None,
     return store, ctx
 
 
-def _tree_map(fn: Callable, tree: Any) -> Any:
-    if isinstance(tree, Mapping):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_tree_map(fn, v) for v in tree]
-    return fn(tree)
-
-
 def params_from_numpy(tree: Any, *, device="cuda") -> Any:
     """The port's model parameters from a numpy pytree of the JAX
     package's ``init_model`` params (bf16 leaves as ``ml_dtypes`` or
     2-byte voids), on ``device``. Leaves are copied, never aliased."""
-    return _tree_map(lambda a: to_torch(np.array(_host(a)), device), tree)
+    return tree_map(lambda a: to_torch(np.array(_host(a)), device), tree)
 
 
 def caches_from_numpy(tree: Any, *, device="cuda") -> Any:
@@ -146,4 +139,4 @@ def caches_from_numpy(tree: Any, *, device="cuda") -> Any:
 def tree_to_numpy(tree: Any) -> Any:
     """Parameters or caches of the port as a numpy pytree (bf16 as
     ``V2``), the inverse of :func:`params_from_numpy`."""
-    return _tree_map(to_numpy, tree)
+    return tree_map(to_numpy, tree)

@@ -13,18 +13,20 @@ device; their join is the ``delta_join`` kernel on the card and its plain
 version on the CPU. Wire-decoded deltas (:class:`SparseChunks`) hold host
 numpy rows, joined into dense state in O(shipped rows).
 
-The additive dot store (``DotSumStore``/``IntervalSum``) arrives with the
-training-state slice.
+The additive dot store (``DotSumStore``) and its §7.2-compressed form
+(``IntervalSum``) hold pytrees of torch tensors: the pseudo-gradient
+contributions of cross-pod training (``sync.localsgd``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import tree as tu
 from ..dtypes import common_device, to_numpy, to_torch
 
 # version = (lamport << RANK_BITS) | writer_rank, in an int32 column (the
@@ -357,6 +359,15 @@ def chunk_tensor(x, chunk_size: int, version: int = 0,
     return ChunkedTensor(vals, vers)
 
 
+def unchunk(ct: ChunkedTensor, shape: Tuple[int, ...],
+            dtype=None) -> torch.Tensor:
+    """The first ``prod(shape)`` elements of ``ct``'s rows as a tensor of
+    ``shape`` (a view of the values when no cast is asked for)."""
+    n = int(np.prod(shape))
+    out = ct.values.reshape(-1)[:n].reshape(shape)
+    return out.to(dtype) if dtype is not None else out
+
+
 @dataclass(frozen=True, eq=False)
 class TensorState:
     """The replicated-state lattice: name → ChunkedTensor (+ lamport clock).
@@ -611,3 +622,145 @@ def unpack_delta(wire: Dict[str, Any], *, sparse: bool = True) -> TensorState:
             chunks[name] = sparse_chunks(shape[0], idx, vals,
                                          vers).to_dense()
     return TensorState.of(chunks, lamport=wire["lamport"])
+
+
+# ---------------------------------------------------------------------------
+# Additive dot-store (pseudo-gradient aggregation) + §7.2-style compression
+# ---------------------------------------------------------------------------
+
+def _leaf_equal(x, y) -> bool:
+    if isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor):
+        if x.shape != y.shape or x.dtype != y.dtype:
+            return False
+        dev = common_device(x, y)
+        return bool(torch.equal(x.to(dev), y.to(dev)))
+    return bool(np.array_equal(to_numpy(x), to_numpy(y)))
+
+
+def _tree_equal(a, b) -> bool:
+    la, ta = tu.flatten(a)
+    lb, tb = tu.flatten(b)
+    if ta != tb or len(la) != len(lb):
+        return False
+    return all(_leaf_equal(x, y) for x, y in zip(la, lb))
+
+
+@dataclass(frozen=True, eq=False)
+class DotSumStore:
+    """Grow-only map (producer, seq) → update pytree; join = union.
+
+    The lattice of cross-pod additive updates. ``total()`` — the quantity
+    the optimizer consumes — is the sum over all dots; because the store
+    is a *set* of uniquely-tagged contributions, duplicated or reordered
+    delivery cannot double-count (the paper's counter argument, §4.2).
+    """
+
+    dots: Tuple[Tuple[Tuple[str, int], Any], ...] = ()
+
+    @staticmethod
+    def bottom() -> "DotSumStore":
+        return DotSumStore()
+
+    def as_dict(self) -> Dict[Tuple[str, int], Any]:
+        return dict(self.dots)
+
+    def contribute_delta(self, producer: str, update: Any) -> "DotSumStore":
+        """δ-mutator: a fresh uniquely-dotted contribution."""
+        seq = 1 + max((s for (p, s), _ in self.dots if p == producer),
+                      default=0)
+        return DotSumStore((((producer, seq), update),))
+
+    def contribute_full(self, producer: str, update: Any) -> "DotSumStore":
+        return self.join(self.contribute_delta(producer, update))
+
+    def join(self, other: "DotSumStore") -> "DotSumStore":
+        merged = self.as_dict()
+        for dot, upd in other.dots:
+            if dot in merged:
+                continue  # unique dots ⇒ identical payload
+            merged[dot] = upd
+        return DotSumStore(tuple(sorted(merged.items(),
+                                        key=lambda kv: kv[0])))
+
+    def decompose(self) -> list:
+        """One atom per dot — RemoveRedundant trims re-gossiped dots the
+        receiver has already acked."""
+        return [DotSumStore((entry,)) for entry in self.dots]
+
+    def leq(self, other: "DotSumStore") -> bool:
+        od = other.as_dict()
+        return all(dot in od for dot, _ in self.dots)
+
+    def __eq__(self, other: object) -> bool:
+        if not isinstance(other, DotSumStore):
+            return NotImplemented
+        a, b = self.as_dict(), other.as_dict()
+        return set(a) == set(b) and all(_tree_equal(a[k], b[k]) for k in a)
+
+    def __hash__(self):  # pragma: no cover
+        raise TypeError("unhashable")
+
+    def total(self) -> Any:
+        if not self.dots:
+            return None
+        acc = tu.tree_map(torch.as_tensor, self.dots[0][1])
+        for _, upd in self.dots[1:]:
+            acc = tu.tree_map(lambda a, b: a + torch.as_tensor(b), acc, upd)
+        return acc
+
+    def version_vector(self) -> Dict[str, int]:
+        vv: Dict[str, int] = {}
+        for (p, s), _ in self.dots:
+            vv[p] = max(vv.get(p, 0), s)
+        return vv
+
+
+class IntervalSum:
+    """§7.2-compressed DotSumStore: (per-producer contiguous prefix, sum).
+
+    NOT a free-standing semilattice — the sum cannot deduplicate arbitrary
+    overlaps — but under Algorithm-2 delivery (delta-intervals aligned with
+    the receiver's acked prefix: the causal delta-merging condition) it is
+    an exact, O(1)-memory encoding of the dot store. ``apply_interval``
+    enforces the condition and is idempotent for re-delivered intervals.
+    """
+
+    def __init__(self):
+        self.prefix: Dict[str, int] = {}
+        self.sum: Any = None
+
+    def apply_interval(self, producer: str, start_seq: int,
+                       updates: Iterable[Any]) -> bool:
+        """Apply contributions ``start_seq .. start_seq+len-1`` from
+        ``producer``. Returns True if applied; False if rejected (gap —
+        the merging condition X ⊒ Xʲᵃ does not hold) or fully stale."""
+        updates = list(updates)
+        have = self.prefix.get(producer, 0)
+        if start_seq - 1 > have:
+            return False                      # gap: would skip dots
+        end = start_seq + len(updates) - 1
+        if end <= have:
+            return True                       # duplicate: already absorbed
+        fresh = updates[have - (start_seq - 1):]  # drop already-applied prefix
+        for upd in fresh:
+            if self.sum is None:
+                self.sum = tu.tree_map(
+                    lambda x: torch.as_tensor(x).clone(), upd)
+            else:
+                self.sum = tu.tree_map(
+                    lambda a, b: a + torch.as_tensor(b), self.sum, upd)
+        self.prefix[producer] = end
+        return True
+
+    def matches(self, ref: DotSumStore, atol: float = 1e-6) -> bool:
+        """Exactness check against the reference dot store."""
+        if ref.version_vector() != {p: n for p, n in self.prefix.items()
+                                    if n > 0}:
+            return False
+        t = ref.total()
+        if t is None or self.sum is None:
+            return t is None and self.sum is None
+        la = tu.leaves(t)
+        lb = tu.leaves(self.sum)
+        return all(np.allclose(to_numpy(a), to_numpy(b), atol=atol)
+                   for a, b in zip(la, lb))

@@ -5,7 +5,8 @@ The four kernels are the Hopper counterparts of the Pallas TPU kernels
 of the JAX package's ``kernels/delta_join.py``:
 
 * ``delta_join``        — out[i] = b[i] if b_ver[i] > a_ver[i] else a[i];
-                          out_ver = max(a_ver, b_ver).
+                          out_ver = max(a_ver, b_ver). Values may also be
+                          int32 or int16: the kernel moves bits only.
 * ``fused_join_digest`` — the join plus max|x| and Σx² (f32) of each
                           merged row, in the same pass.
 * ``scatter_join``      — merge ``r`` delta rows at rows ``idx`` into the
@@ -36,6 +37,10 @@ from . import ref
 from ._build import library
 
 VALUE_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+# delta_join only moves bits (a select per row), so it also takes the
+# 4- and 2-byte integer leaves of a checkpoint (the optimizer's int32
+# step); the digests are float sums and keep VALUE_DTYPES
+JOIN_VALUE_DTYPES = frozenset(VALUE_DTYPES) | {torch.int32, torch.int16}
 VERSION_DTYPE = torch.int32
 
 launches: Dict[str, int] = {"delta_join": 0, "fused_join_digest": 0,
@@ -79,13 +84,14 @@ def _check_rows(vals: torch.Tensor, vers: torch.Tensor, what: str) -> None:
         raise TypeError(f"{what} versions must be int32, got {vers.dtype}")
 
 
-def _kernel_operands(*tensors: torch.Tensor) -> None:
+def _kernel_operands(*tensors: torch.Tensor,
+                     dtypes=VALUE_DTYPES) -> None:
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError("kernel operands must be contiguous")
-    if tensors[0].dtype not in VALUE_DTYPES:
+    if tensors[0].dtype not in dtypes:
         raise TypeError(f"no kernel for {tensors[0].dtype} values; have "
-                        f"{sorted(map(str, VALUE_DTYPES))}")
+                        f"{sorted(map(str, dtypes))}")
 
 
 def _vec(row_bytes: int, *tensors: torch.Tensor) -> int:
@@ -107,14 +113,16 @@ def _raise_on(rc: int, name: str) -> None:
 def delta_join(a_vals: torch.Tensor, a_vers: torch.Tensor,
                b_vals: torch.Tensor, b_vers: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """a_vals, b_vals [n, chunk]; a_vers, b_vers [n] int32."""
+    """a_vals, b_vals [n, chunk] (f32, f16, bf16, int32 or int16);
+    a_vers, b_vers [n] int32."""
     _check_rows(a_vals, a_vers, "a")
     _check_rows(b_vals, b_vers, "b")
     if b_vals.shape != a_vals.shape or b_vals.dtype != a_vals.dtype:
         raise ValueError("a and b must have the same shape and dtype")
     if not _kernel_route(a_vals, a_vers, b_vals, b_vers):
         return ref.delta_join_ref(a_vals, a_vers, b_vals, b_vers)
-    _kernel_operands(a_vals, a_vers, b_vals, b_vers)
+    _kernel_operands(a_vals, a_vers, b_vals, b_vers,
+                     dtypes=JOIN_VALUE_DTYPES)
     n, chunk = a_vals.shape
     ov, over = torch.empty_like(a_vals), torch.empty_like(a_vers)
     if n and chunk:

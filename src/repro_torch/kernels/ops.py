@@ -115,11 +115,22 @@ def _stage(name: str, operands: Sequence) -> Tuple[torch.Tensor, ...]:
 # Attention
 # ---------------------------------------------------------------------------
 
+def _no_grad_operands(name: str, *operands) -> None:
+    """The flash kernels have no backward (nor do the JAX package's):
+    refuse operands that need a gradient rather than return a result
+    that silently has none."""
+    if any(isinstance(t, torch.Tensor) and t.requires_grad
+           for t in operands):
+        raise RuntimeError(f"{name} has no backward: an operand requires "
+                           "grad (training runs the plain attention)")
+
+
 def flash_attention(q, k, v, *, scale: Optional[float] = None,
                     window: Optional[int] = None,
                     softcap: Optional[float] = None) -> torch.Tensor:
     """Causal flash attention. q [b,h,s,hd]; k,v [b,kv,s,hd] (views with
     any batch/head/seq strides)."""
+    _no_grad_operands("flash_attention", q, k, v)
     record_launch("flash_attention", q, k, v)
     return _fa.flash_attention(q, k, v, scale=scale, window=window,
                                softcap=softcap)
@@ -130,6 +141,7 @@ def flash_decode(q, k, v, q_pos, k_pos, *, scale: Optional[float] = None,
                  softcap: Optional[float] = None) -> torch.Tensor:
     """One-token decode against a (ring) KV cache with slot positions.
     q [b,h,1,hd]; k,v [b,kv,C,hd]; q_pos [b,1], k_pos [b,C] int32."""
+    _no_grad_operands("flash_decode", q, k, v)
     record_launch("flash_decode", q, k, v, q_pos, k_pos)
     return _fa.flash_decode(q, k, v, q_pos, k_pos, scale=scale,
                             window=window, softcap=softcap)

@@ -19,6 +19,12 @@ CPU their plain tiled build ``_mha_chunked`` (prefill) and ``_mha_core``
 (decode). Tensors on any other device go to the kernel wrappers, which
 refuse them: no path falls back to a plain version while a card runs it.
 
+Training runs the plain ``_mha_chunked`` / ``_mha_core`` under autograd
+on every device, as the JAX package's train path does (its Pallas
+kernels have no backward): ``attend_full`` takes the kernel route only
+for a prefill (one that emits a cache) whose operands need no
+gradient (:func:`flash_route`).
+
 Unlike the JAX package, whose arrays are immutable, ``cache_append``
 writes into the cache's tensors in place (a decode step would otherwise
 copy every layer's whole cache) and returns the same dictionary.
@@ -177,8 +183,15 @@ def _flash_full(cfg, spec, q, k, v) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Full-sequence (prefill)
+# Full-sequence (train / prefill)
 # ---------------------------------------------------------------------------
+
+def flash_route(q: torch.Tensor, make_cache: Optional[int]) -> bool:
+    """Whether ``attend_full`` launches the prefill kernel: off the CPU,
+    for a prefill (``make_cache`` set), never under autograd."""
+    return (q.device.type != "cpu" and make_cache is not None
+            and not q.requires_grad)
+
 
 def attend_full(p: Dict, cfg, spec, x: torch.Tensor, positions: torch.Tensor,
                 make_cache: Optional[int] = None
@@ -190,11 +203,11 @@ def attend_full(p: Dict, cfg, spec, x: torch.Tensor, positions: torch.Tensor,
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, positions)
     if cfg.attn_impl == "chunked":
-        if q.device.type == "cpu":
+        if flash_route(q, make_cache):
+            y = _flash_full(cfg, spec, q, k, v)
+        else:
             y = _mha_chunked(cfg, q, k, v, positions, positions,
                              spec.window, cfg.attn_block)
-        else:
-            y = _flash_full(cfg, spec, q, k, v)
     else:
         y = _mha_core(cfg, q, k, v, positions, positions, spec.window)
     y = torch.matmul(y.reshape(b, s, -1), p["wo"])

@@ -1,4 +1,5 @@
-"""Shared neural layers: norms, MLPs, embeddings, softcaps, positions.
+"""Shared neural layers: norms, MLPs, embeddings, softcaps, positions,
+and the training loss.
 
 Plain functions over dictionaries of tensors, as in the JAX package
 (whose ``init_*`` also return logical sharding specs; the port has no
@@ -131,3 +132,24 @@ def sinusoidal_positions(positions: torch.Tensor, d: int,
     freqs = torch.exp(-float(np.log(10_000.0)) * steps / half)
     ang = positions[..., None].to(torch.float32) * freqs.to(torch.float32)
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy in f32. logits [..., v], labels [...].
+
+    The gold logit is a gather; the JAX package's iota-compare-select
+    form serves GSPMD sharding of the vocab axis, which the port does not
+    have yet."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

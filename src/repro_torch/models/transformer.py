@@ -1,18 +1,23 @@
-"""Decoder stack over ``LayerSpec`` layouts: the serving path.
+"""Decoder stack over ``LayerSpec`` layouts: training and serving.
 
 * blocks: pre-norm attention + dense MLP (+ gemma2-style post-norms),
   assembled per the config's layer layout;
 * layer parameters are stacked per group of ``layout_groups`` with a
   leading ``layers`` axis, exactly as the JAX package stacks them for its
   ``lax.scan``; the port runs each group as a Python loop over its
-  repeats, on views of the stacked tensors;
-* entry points: ``prefill`` (prompt → last-position logits and caches)
-  and ``decode_step`` (one token against the caches).
+  repeats, on views of the stacked tensors (in training the views come
+  from one ``torch.unbind``, whose backward stacks the layers' gradients
+  into the stacked parameter's);
+* ``torch.utils.checkpoint`` (remat) around each repeated super-block in
+  training, where the JAX package has ``jax.checkpoint``;
+* entry points: ``forward`` / ``train_loss`` (full sequence),
+  ``prefill`` (prompt → last-position logits and caches) and
+  ``decode_step`` (one token against the caches).
 
 ``input_mode`` selects token embedding, raw embeddings (musicgen frames),
 or token+prefix embeddings (phi-3-vision patches), as in the JAX package.
 MLA and SSM mixers and MoE MLPs come with their model families in a later
-slice; so do training and its loss.
+slice.
 """
 
 from __future__ import annotations
@@ -20,13 +25,16 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn_mod
 from .config import LayerSpec, ModelConfig, layout_groups
-from .layers import (apply_mlp, apply_norm, embed_tokens, init_embedding,
-                     init_mlp, init_norm, lm_logits, sinusoidal_positions)
+from .layers import (apply_mlp, apply_norm, cross_entropy, embed_tokens,
+                     init_embedding, init_mlp, init_norm, lm_logits,
+                     sinusoidal_positions)
 
 _LATER = "is not ported yet (slice E, its model family)"
+AUX_LOSS_WEIGHT = 0.01
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -69,6 +77,16 @@ def _layer(tree: Any, r: int) -> Any:
     if isinstance(tree, dict):
         return {k: _layer(v, r) for k, v in tree.items()}
     return tree[r]
+
+
+def _unstack(tree: Any, repeats: int) -> List[Any]:
+    """Every layer's views of a stacked tree, from one ``torch.unbind``
+    per leaf (``_layer`` for all ``r`` at once)."""
+    if isinstance(tree, dict):
+        per_key = {k: _unstack(v, repeats) for k, v in tree.items()}
+        return [{k: v[r] for k, v in per_key.items()}
+                for r in range(repeats)]
+    return list(torch.unbind(tree, 0))
 
 
 def init_model(cfg: ModelConfig, seed: int = 0, *, device="cuda"
@@ -143,17 +161,36 @@ def _cache_capacity(cfg: ModelConfig, spec: LayerSpec, max_len: int) -> int:
 def _run_stack(cfg: ModelConfig, params: Dict, x: torch.Tensor,
                positions: torch.Tensor, mode: str,
                caches: Optional[List] = None,
-               max_len: Optional[int] = None
-               ) -> Tuple[torch.Tensor, List]:
-    """``mode`` "prefill" builds the caches (stacked per group as the JAX
+               max_len: Optional[int] = None, remat: bool = True
+               ) -> Tuple[torch.Tensor, Optional[List], torch.Tensor]:
+    """Returns ``(x, caches, aux)``. ``mode`` "train" runs the full
+    sequence (each repeated super-block under ``checkpoint`` when
+    ``remat``); "prefill" builds the caches (stacked per group as the JAX
     scan stacks them); "decode" updates ``caches`` in place and returns
-    them."""
-    if mode not in ("prefill", "decode"):
-        raise ValueError(f"mode {mode!r}: the port serves prefill and decode")
+    them. ``aux`` is the MoE load-balancing loss, 0 for the dense
+    family."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode {mode!r}")
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches: List[Any] = []
     for gi, (block, repeats) in enumerate(layout_groups(
             cfg.default_layout())):
         stacked = params["groups"][gi]
+        if mode == "train":
+            per_layer = [_unstack(stacked[li], repeats)
+                         for li in range(len(block))]
+
+            def body(x, layer_params, block=block):
+                for li, spec in enumerate(block):
+                    x, _ = _apply_block(cfg, spec, layer_params[li], x,
+                                        positions, mode, None, None)
+                return x
+
+            for r in range(repeats):
+                layer_params = [per_layer[li][r] for li in range(len(block))]
+                x = (checkpoint(body, x, layer_params, use_reentrant=False)
+                     if remat else body(x, layer_params))
+            continue
         group_cache = caches[gi] if caches is not None else None
         made: List[List[Dict]] = [[] for _ in block]
         for r in range(repeats):
@@ -167,7 +204,7 @@ def _run_stack(cfg: ModelConfig, params: Dict, x: torch.Tensor,
                 made[li].append(nc)
         new_caches.append([_stack(m) for m in made] if mode == "prefill"
                           else group_cache)
-    return x, new_caches
+    return x, (new_caches if mode != "train" else None), aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -209,13 +246,32 @@ def _inputs_to_hidden(cfg: ModelConfig, params: Dict, batch: Dict
 # Public entry points
 # ---------------------------------------------------------------------------
 
+def forward(cfg: ModelConfig, params: Dict, batch: Dict,
+            remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence logits (training). Returns (logits f32, aux_loss)."""
+    x, positions = _inputs_to_hidden(cfg, params, batch)
+    x, _, aux = _run_stack(cfg, params, x, positions, "train", remat=remat)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    return lm_logits(params["embed"], cfg, x), aux
+
+
+def train_loss(cfg: ModelConfig, params: Dict, batch: Dict,
+               remat: bool = True) -> torch.Tensor:
+    logits, aux = forward(cfg, params, batch, remat=remat)
+    labels = batch["labels"]
+    if cfg.input_mode == "tokens+prefix":
+        logits = logits[:, cfg.prefix_len:, :]  # loss on text positions only
+    loss = cross_entropy(logits, labels, batch.get("loss_mask"))
+    return loss + AUX_LOSS_WEIGHT * aux
+
+
 def prefill(cfg: ModelConfig, params: Dict, batch: Dict, max_len: int
             ) -> Tuple[torch.Tensor, List]:
     """Run the prompt; returns (last-position logits [b, 1, vocab] f32,
     caches)."""
     x, positions = _inputs_to_hidden(cfg, params, batch)
-    x, caches = _run_stack(cfg, params, x, positions, "prefill",
-                           max_len=max_len)
+    x, caches, _ = _run_stack(cfg, params, x, positions, "prefill",
+                              max_len=max_len)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return lm_logits(params["embed"], cfg, x[:, -1:, :]), caches
 
@@ -230,8 +286,8 @@ def decode_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     else:
         batch = {"tokens": tokens, "positions": pos}
     x, positions = _inputs_to_hidden(cfg, params, batch)
-    x, caches = _run_stack(cfg, params, x, positions, "decode",
-                           caches=caches)
+    x, caches, _ = _run_stack(cfg, params, x, positions, "decode",
+                              caches=caches)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return lm_logits(params["embed"], cfg, x), caches
 

@@ -37,8 +37,11 @@ JAX package writes them.
 
 from __future__ import annotations
 
+import copyreg
+import io
 import pickle
 import struct
+import sys
 import zlib
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
@@ -51,7 +54,7 @@ from ..core.dotcols import (CausalContextCols, CausalDigest, DotFunCols,
                             DotMapCols, DotSetCols)
 from ..core.store import LatticeStore
 from ..core.tensor_lattice import SparseChunks, TensorState, live_rows
-from ..dtypes import to_torch
+from ..dtypes import to_numpy, to_torch
 from ..lifecycle.lattice import LIFE_BOTTOM, Life
 
 _U8 = struct.Struct("<B")
@@ -592,6 +595,141 @@ def decode_value(buf, to_device: bool = False, device="cuda") -> Any:
     if tag == _TAG_OPAQUE:
         return pickle.loads(view[1:])
     raise ValueError(f"unknown payload tag {tag}")
+
+
+# ---------------------------------------------------------------------------
+# Top-k sparsified updates (sync.compression payloads)
+# ---------------------------------------------------------------------------
+#
+# The JAX package's topk body opens with ``pickle.dumps`` of a jax
+# ``PyTreeDef`` (protocol 4). The port writes and reads that same pickle
+# without jax: a stand-in class pickles under jaxlib's global names with
+# jax's state — the default registry and the post-order node list
+# ``(kind, arity, dict keys, None, num_leaves, num_nodes)`` — through
+# pickle's pure-Python pickler (whose output equals the C pickler's), and
+# a restricted unpickler maps exactly those two globals back.
+
+_JAX_TREEDEF = ("jaxlib._jax.pytree", "PyTreeDef")
+_JAX_REGISTRY = ("jax._src.tree_util", "default_registry")
+
+
+class _JaxTreeDef:
+    """Stand-in for ``jaxlib._jax.pytree.PyTreeDef`` in topk pickles."""
+
+    __slots__ = ("nodes",)
+
+    def __init__(self, nodes=()):
+        self.nodes = nodes
+
+    def __reduce_ex__(self, protocol):
+        return copyreg.__newobj__, (type(self),), (_REGISTRY, self.nodes)
+
+    def __setstate__(self, state):
+        self.nodes = state[1]
+
+
+class _JaxRegistry:
+    """Stand-in for ``jax._src.tree_util.default_registry``."""
+
+    def __reduce_ex__(self, protocol):
+        return "default_registry"
+
+
+_REGISTRY = _JaxRegistry()
+
+
+class _TreeDefPickler(pickle._Pickler):
+    def save_global(self, obj, name=None):
+        where = (_JAX_TREEDEF if obj is _JaxTreeDef
+                 else _JAX_REGISTRY if obj is _REGISTRY else None)
+        if where is None:
+            return super().save_global(obj, name)
+        self.save(where[0])
+        self.save(where[1])
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+
+class _TreeDefUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if (module, name) == _JAX_TREEDEF:
+            return _JaxTreeDef
+        if (module, name) == _JAX_REGISTRY:
+            return _REGISTRY
+        raise pickle.UnpicklingError(
+            f"unexpected global {module}.{name} in a topk treedef")
+
+
+def _treedef_pickle(treedef) -> bytes:
+    nodes = [(n.kind, n.arity,
+              None if n.keys is None else [
+                  sys.intern(k) if isinstance(k, str) else k
+                  for k in n.keys],
+              None, n.num_leaves, n.num_nodes) for n in treedef.nodes]
+    buf = io.BytesIO()
+    _TreeDefPickler(buf, protocol=4).dump(_JaxTreeDef(nodes))
+    return buf.getvalue()
+
+
+def _treedef_unpickle(blob):
+    from ..tree import Node, TreeDef
+    stand_in = _TreeDefUnpickler(io.BytesIO(bytes(blob))).load()
+    return TreeDef(tuple(
+        Node(kind, arity, None if keys is None else tuple(keys), n_leaves,
+             n_nodes)
+        for kind, arity, keys, _custom, n_leaves, n_nodes in stand_in.nodes))
+
+
+def _is_topk_leaf(t) -> bool:
+    return isinstance(t, dict) and "idx" in t
+
+
+def encode_topk(sparse: Any) -> bytes:
+    """Body encoding for a ``TopKCompressor.compress`` result: per leaf,
+    raw little-endian index/value columns (the dominant bytes); the
+    pytree structure rides as a tiny pickled preamble, the JAX package's
+    ``PyTreeDef`` pickle byte for byte."""
+    from ..tree import flatten
+
+    leaves, treedef = flatten(sparse, is_leaf=_is_topk_leaf)
+    tdef = _treedef_pickle(treedef)
+    out = bytearray()
+    out += _U32.pack(len(tdef))
+    out += tdef
+    out += _U32.pack(len(leaves))
+    for leaf in leaves:
+        idx = np.ascontiguousarray(to_numpy(leaf["idx"]), dtype=np.int32)
+        vals = np.ascontiguousarray(to_numpy(leaf["vals"]))
+        shape = tuple(int(s) for s in leaf["shape"])
+        out += _U8.pack(len(shape))
+        for dim in shape:
+            out += _U32.pack(dim)
+        _put_str(out, _dtype_str(vals.dtype), width=_U16)
+        out += _U32.pack(int(idx.size))
+        _pad8(out)
+        out += idx.tobytes()
+        _pad8(out)
+        out += vals.tobytes()
+        _pad8(out)
+    return bytes(out)
+
+
+def decode_topk(buf) -> Any:
+    """The sparse pytree of a topk body: per leaf host numpy ``idx``
+    (int32) and ``vals`` views into ``buf``, and the ``shape`` tuple."""
+    cur = _Cursor(buf)
+    treedef = _treedef_unpickle(cur.get_blob())
+    n_leaves = cur.unpack(_U32)
+    leaves = []
+    for _ in range(n_leaves):
+        rank = cur.unpack(_U8)
+        shape = tuple(cur.unpack(_U32) for _ in range(rank))
+        dtype = np.dtype(cur.get_str(width=_U16))
+        k = cur.unpack(_U32)
+        idx = cur.array(np.int32, k)
+        vals = cur.array(dtype, k)
+        leaves.append({"idx": idx, "vals": vals, "shape": shape})
+    return treedef.unflatten(leaves)
 
 
 # ---------------------------------------------------------------------------

@@ -554,3 +554,95 @@ def test_resident_stores_converge_over_tcp_equal_to_the_replay(
     assert launched["chunk_digest"] > 0
     for name, n in launched.items():
         assert traced.get(name, 0) == n, (name, n, traced)
+
+
+# ---------------------------------------------------------------------------
+# Training state on the card (slices E-train and D)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int16])
+@pytest.mark.parametrize("n,chunk", SHAPES)
+def test_delta_join_moves_integer_values_bit_exact(card, dtype, n, chunk):
+    """A checkpoint's int32 step leaf joins on the card: the join is a
+    select of bits, so 4- and 2-byte integer rows take the same kernel."""
+    g = torch.Generator(device=card).manual_seed(n + chunk)
+    info = torch.iinfo(dtype)
+    av, bv = (torch.randint(info.min, info.max, (n, chunk), generator=g,
+                            device=card, dtype=torch.int64).to(dtype)
+              for _ in range(2))
+    avr, bvr = (torch.randint(0, 9, (n,), generator=g, device=card,
+                              dtype=torch.int32) for _ in range(2))
+    before = dj.launches["delta_join"]
+    got = ops.delta_join(av, avr, bv, bvr)
+    want = ref.delta_join_ref(av, avr, bv, bvr)
+    torch.cuda.synchronize()
+    assert got[0].dtype == dtype
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert dj.launches["delta_join"] == before + 1
+    with pytest.raises(TypeError, match="no kernel"):
+        dj.chunk_digest(av)          # digests stay float-only
+
+
+def _reduced_train_state(device, seed=0):
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    from repro_torch.optim import init_opt_state
+    cfg = get_config("qwen1.5-0.5b", reduced=True)
+    params = init_model(cfg, seed, device="cpu")
+    opt = init_opt_state(params)
+    opt["step"] = torch.tensor(seed + 7, dtype=torch.int32)
+    from repro_torch import tree as tu
+    return tu.tree_map(lambda t: t.to(device), {"params": params,
+                                               "opt": opt})
+
+
+@pytest.mark.cuda
+def test_checkpoint_restore_on_the_card_equals_the_cpu(card, tmp_path):
+    from repro_torch.checkpoint import (DeltaCheckpointStore,
+                                        state_from_pytree)
+    store = DeltaCheckpointStore(str(tmp_path))
+    for seq in range(3):
+        state, _ = state_from_pytree(_reduced_train_state(card, seq), 256,
+                                     rank=0, lamport=seq + 1)
+        (store.save_snapshot if seq == 0 else store.append_delta)(state,
+                                                                  seq=seq)
+    before = dj.launches["delta_join"]
+    on_card, _ = store.restore(device="cuda")
+    torch.cuda.synchronize()
+    n_leaves = len(on_card.chunks)
+    assert dj.launches["delta_join"] == before + 2 * n_leaves
+    on_cpu, _ = store.restore(device="cpu")
+    assert [n for n, _ in on_card.chunks] == [n for n, _ in on_cpu.chunks]
+    for (name, a), (_, b) in zip(on_card.chunks, on_cpu.chunks):
+        assert a.values.device.type == "cuda"
+        assert torch.equal(_bits(a.values.cpu()), _bits(b.values)), name
+        assert torch.equal(a.versions.cpu(), b.versions)
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu(card):
+    """One REDUCED train step (f32, remat) on the card against the CPU:
+    the loss to rtol 1e-5, parameters to rtol 1e-5 / atol 1e-4 (a tenth
+    of the lr-1e-3 step; AdamW normalizes gradient size away)."""
+    from repro_torch import tree as tu
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import TrainConfig, make_train_step
+    cfg = get_config("qwen1.5-0.5b", reduced=True)
+    step = make_train_step(cfg, TrainConfig(optimizer=AdamWConfig(
+        lr=1e-3, warmup_steps=1, total_steps=10)))
+    batch = SyntheticLMStream(vocab=cfg.vocab, seq=32, batch=4,
+                              seed=1).batch_at(0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = _reduced_train_state(dev)
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        p, s, m = step(state["params"], state["opt"], tb)
+        out[dev] = (float(m["loss"]), [t.cpu() for t in tu.leaves(p)],
+                    int(s["step"]))
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
+    assert out["cuda"][2] == out["cpu"][2] == 8
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)

@@ -70,11 +70,15 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
     "topology", "core.hiergossip", "lifecycle.reaper", "sync",
     "sync.membership", "sync.metrics", "obs", "obs.registry", "obs.trace",
     "obs.probes", "obs.scrape", "obs.analyze", "net", "net.stats",
-    "net.transport", "net.node",
+    "net.transport", "net.node", "tree", "optim", "optim.adamw", "data",
+    "data.synthetic", "runtime", "runtime.steps", "checkpoint",
+    "checkpoint.store", "sync.compression", "sync.localsgd",
+    "launch.train",
 ])
 def test_replication_stack_modules_are_walked(name):
-    """The modules of the replication stack are part of the package the
-    probe above imports with ``jax`` and ``repro`` blocked."""
+    """The modules of the replication stack and of training (slices
+    E-train and D) are part of the package the probe above imports with
+    ``jax`` and ``repro`` blocked."""
     walked = {m.name for m in pkgutil.walk_packages(
         [str(ROOT / "src" / "repro_torch")], "repro_torch.")}
     assert f"repro_torch.{name}" in walked
