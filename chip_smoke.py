@@ -119,6 +119,27 @@ NVIDIA card. Run from the root of a checkout:
    (and of ``torch.topk``'s selection, a yardstick, where the embedding's
    sort passes 50 ms); the embedding's and one stacked leaf's indices and
    values bit-equal to a stable CPU argsort.
+11. Families: the other six architectures the port serves, each at its
+   published widths (bf16, random weights from the seed, every earlier
+   tensor freed first) through ``launch.serve``'s ``generate`` with
+   ``attn_impl="chunked"``: gemma2-27b (all 46 layers, 1 request of
+   4,608 prompt tokens, so the local layers' 4,096-slot rings wrap in
+   decode), stablelm-1.6b, phi-3-vision-4.2b (256 patch embeddings + 768
+   tokens), musicgen-large (frame embeddings) at full depth, and
+   mixtral-8x22b (4 of 56 layers) and deepseek-v2-236b (3 of 60: the
+   dense layer and 2 MoE) cut in depth; 16 tokens out each. The flash
+   launches are counted from 0 around each served run: one prefill
+   launch per attention layer (phi-3-vision's head_dim 96 on the
+   CUDA-core route, the others on the tensor cores) and one decode launch
+   per attention layer and step; deepseek's MLA launches none. Each is
+   scored by the plain path under the serve phase's bf16 rule; then
+   gemma2 (one local and one global layer, 4,608 tokens), mixtral and
+   deepseek at full width, 2 layers deep, in f32 at rtol = atol = 1e-3.
+   Where a check fails while the MoE routing flipped between the two
+   paths (a near-tie decided the other way), the flips are printed and
+   the plain path is scored again on the served routing; without flips
+   a failure stands. Per model: prefill s, decode tok/s, peak GiB, flash
+   launches by route and MoE pairs dropped at prefill and decode.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase
 raises and the script exits non-zero without it, as it does when no card
@@ -185,6 +206,23 @@ F32_DEPTH = 2                    # layers of the f32 full-width check
 F32_RTOL = F32_ATOL = 1e-3
 SERVE_REPEATS = 5                # timed runs of each attn_impl, in turns
 SESSION_GATEWAYS = 3
+# phase 11, the families: every other architecture the port serves, at its
+# published widths (random bf16 weights from the seed); the two MoE
+# models cut in depth to fit one card
+FAMILIES = (   # arch, layers on the card (None: all), requests, prompt, out
+    ("gemma2-27b", None, 1, 4608, 16),       # crosses the 4,096 window
+    ("stablelm-1.6b", None, 2, 1000, 16),
+    ("phi-3-vision-4.2b", None, 2, 1024, 16),   # 256 patches + 768 tokens
+    ("musicgen-large", None, 2, 1000, 16),   # frame embeddings in
+    ("mixtral-8x22b", 4, 2, 1000, 16),       # 4 of 56 layers
+    ("deepseek-v2-236b", 3, 2, 1000, 16),    # the dense layer and 2 MoE
+)
+FAMILY_ROUTE = {"phi-3-vision-4.2b": "simt"}   # head_dim 96; others tc
+FAMILIES_F32 = (   # arch, layers, requests, prompt, out: f32, full width
+    ("gemma2-27b", 2, 1, 4608, 8),           # one local, one global layer
+    ("mixtral-8x22b", 2, 2, 1000, 8),
+    ("deepseek-v2-236b", 2, 2, 1000, 8),     # the dense layer and 1 MoE
+)
 # dot stores at the sizes of an OR-Set / session-table deployment
 # (benchmarks/bench_dots.py): a 1,062,500-dot causal join over 4
 # replicas, and a reconnect of a 999,000-dot ORMap (2,000 keys of 500
@@ -2145,6 +2183,254 @@ def topk_path(dev) -> dict:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# 11. Families: the remaining dense configs, MoE and MLA
+# ---------------------------------------------------------------------------
+
+def _cut(cfg, depth):
+    """``cfg`` at its published widths, its first ``depth`` layers."""
+    import dataclasses
+    if depth is None:
+        return cfg
+    return dataclasses.replace(cfg, n_layers=depth,
+                               layout=cfg.default_layout()[:depth])
+
+
+def _check_family_launches(arch, cfg, gen, got, routes) -> None:
+    """One prefill launch per attention layer on the model's route, one
+    decode launch per attention layer and step; none for MLA layers."""
+    attn = sum(spec.kind == "attn" for spec in cfg.default_layout())
+    want = {"flash_attention": attn, "flash_decode": attn * (gen - 1)}
+    route = FAMILY_ROUTE.get(arch, "tc")
+    want_routes = {"flash_attention_tc": 0, "flash_attention_simt": 0}
+    want_routes[f"flash_attention_{route}"] = attn
+    if got != want or routes != want_routes:
+        raise AssertionError(f"families {arch}: launches {got} routes "
+                             f"{routes}, expected {want} {want_routes}")
+
+
+def _routing_flips(a, b) -> int:
+    """Tokens whose expert set differs between two runs' routing."""
+    import torch
+    flips = 0
+    for x, y in zip(a.expert_ids, b.expert_ids, strict=True):
+        flips += int((torch.sort(x, -1).values
+                      != torch.sort(y, -1).values).any(-1).sum())
+    return flips
+
+
+def _scored(what, cfg, params, prompt_fn, gen, run, tap, check):
+    """The plain path (``attn_impl="naive"``) teacher-forced on the served
+    tokens (embeddings: the same draws) and held to the served run by
+    ``check``. If that fails while the MoE routing flipped between the
+    two paths (a near-tie decided the other way on bf16 or f32 rounding),
+    the flips are counted and the plain path is scored again on the
+    served routing, as it is on the served tokens; without flips a
+    failure stands."""
+    import dataclasses
+    import torch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import moe
+
+    plain_cfg = dataclasses.replace(cfg, attn_impl="naive")
+    forced = torch.from_numpy(run.tokens).to(params["embed"]["tok"].device)
+
+    def plain_run(routing=None):
+        prompt, rng = prompt_fn()
+        with moe.tap_routing(forced=routing) as ptap:
+            out = generate(plain_cfg, params, prompt, gen, rng=rng,
+                           keep_logits=True, forced=forced)
+        return out, ptap
+
+    plain, ptap = plain_run()
+    flips = _routing_flips(tap, ptap) if tap.expert_ids else 0
+    try:
+        rec = check(run, plain)
+    except AssertionError as e:
+        if not flips:
+            raise
+        log(f"{what}: {flips} tokens' experts flipped between the paths "
+            f"({e}); the plain path scored again on the served routing")
+        plain, _ = plain_run(tap.expert_ids)
+        rec = check(run, plain)
+    rec["routing_flips"] = flips
+    rec["plain_prefill_s"] = plain.prefill_s
+    rec["plain_decode_s"] = plain.decode_s
+    return rec
+
+
+def _f32_check(what):
+    """``check`` for :func:`_scored`: every step at rtol = atol =
+    ``F32_RTOL`` and the same greedy tokens."""
+    import torch
+
+    def check(run, plain):
+        worst = 0.0
+        for step, (s_lg, p_lg) in enumerate(zip(run.logits, plain.logits)):
+            if not bool(torch.isclose(s_lg, p_lg, rtol=F32_RTOL,
+                                      atol=F32_ATOL).all()):
+                raise AssertionError(f"{what}: step {step} beyond "
+                                     f"rtol=atol={F32_RTOL}")
+            worst = max(worst, float((s_lg - p_lg).abs().max()))
+        if not np.array_equal(run.tokens, plain.tokens):
+            raise AssertionError(f"{what}: greedy tokens differ")
+        log(f"{what}: chunked equals naive within rtol=atol={F32_RTOL} at "
+            f"all {len(run.logits)} steps (max gap {worst:.3e}), same "
+            "tokens")
+        return {"max_gap": worst}
+    return check
+
+
+def _family_model(dev, arch, depth, b, prompt_len, gen, dtype=None,
+                  seed=SEED):
+    """``(cfg, params, prompt_fn)``: the published config (cut to
+    ``depth`` layers, in ``dtype``) with ``attn_impl="chunked"``, its
+    random parameters on ``dev`` and a function giving the same prompt
+    and embedding generator anew."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_prompt
+    from repro_torch.models import init_model
+
+    cfg = dataclasses.replace(_cut(get_config(arch), depth),
+                              attn_impl="chunked",
+                              dtype=dtype or get_config(arch).dtype)
+    params = init_model(cfg, seed, device=dev)
+    return cfg, params, lambda: make_prompt(cfg, b, prompt_len, seed, dev)
+
+
+def _held_tensors(top=6) -> str:
+    """The largest CUDA tensors still referenced, with what refers to
+    them (two levels of ``gc.get_referrers``)."""
+    import gc
+    import warnings
+
+    import torch
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        found = [o for o in gc.get_objects()
+                 if isinstance(o, torch.Tensor) and o.is_cuda]
+    found.sort(key=lambda t: -t.untyped_storage().nbytes())
+    seen, out = set(), []
+    for t in found:
+        ptr = t.untyped_storage().data_ptr()
+        if ptr in seen or len(out) == top:
+            continue
+        seen.add(ptr)
+        chain = []
+        for r in gc.get_referrers(t)[:3]:
+            if r is found:
+                continue
+            up = [type(u).__name__ for u in gc.get_referrers(r)[:3]
+                  if u is not found]
+            chain.append(f"{type(r).__name__}<-{'/'.join(up)}")
+        out.append(f"{tuple(t.shape)} {t.dtype} "
+                   f"{t.untyped_storage().nbytes() / 2 ** 30:.3f} GiB "
+                   f"held by {', '.join(chain)}")
+    del found
+    return f"{len(out)} largest: " + "; ".join(out)
+
+
+def families_path(dev) -> dict:
+    """Phase 11: serve each of ``FAMILIES`` through ``launch.serve``'s
+    ``generate`` with the flash kernels (counts from 0 around the served
+    run), score it with the plain path, and run the f32 checks of
+    ``FAMILIES_F32``. Returns the launches and the records."""
+    import gc
+
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import moe
+    from repro_torch.tree import leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"families: {torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB "
+        "held from earlier phases at the start; " + _held_tensors())
+    launches = {"flash_attention": 0, "flash_decode": 0}
+    out = {}
+    for arch, depth, b, prompt_len, gen in FAMILIES:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cfg, params, prompt_fn = _family_model(dev, arch, depth, b,
+                                               prompt_len, gen)
+        n_params = sum(t.numel() for t in leaves(params))
+        prompt, rng = prompt_fn()
+        generate(cfg, params, prompt, 2, rng=rng)     # warm-up, not counted
+        torch.cuda.synchronize()
+        made_s = time.perf_counter() - t0
+
+        prompt, rng = prompt_fn()
+        fa.reset_launches()
+        with moe.tap_routing() as tap:
+            run = generate(cfg, params, prompt, gen, rng=rng,
+                           keep_logits=True)
+        got, routes = dict(fa.launches), dict(fa.routes)
+        _check_family_launches(arch, cfg, gen, got, routes)
+        for k in launches:
+            launches[k] += got[k]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if run.tokens.shape != (b, gen) or not (
+                (run.tokens >= 0) & (run.tokens < cfg.vocab)).all():
+            raise AssertionError(f"families {arch}: bad tokens {run.tokens}")
+        n_moe = sum(spec.mlp == "moe" for spec in cfg.default_layout())
+        drops = [int(d) for d in tap.drops]
+        rec = {"layers": cfg.n_layers, "params": n_params,
+               "param_counts": cfg.param_counts()[0],
+               "made_s": made_s, "prefill_s": run.prefill_s,
+               "decode_s": run.decode_s,
+               "decode_tok_per_s": b * (gen - 1) / run.decode_s,
+               "peak_gib": peak, "launches": got, "routes": routes,
+               "moe_dropped_prefill": sum(drops[:n_moe]),
+               "moe_dropped_decode": sum(drops[n_moe:]),
+               "moe_pairs_prefill": (b * prompt_len * n_moe * cfg.moe.top_k
+                                     if cfg.moe else 0),
+               "moe_pairs_decode": (b * (gen - 1) * n_moe * cfg.moe.top_k
+                                    if cfg.moe else 0)}
+        log(f"families {arch} (bf16, chunked, card): layers={cfg.n_layers} "
+            f"params={n_params} (param_counts {rec['param_counts']}) "
+            f"batch={b} prompt={prompt_len} gen={gen} "
+            f"made_s={made_s:.3f} prefill_s={run.prefill_s:.4f} "
+            f"decode_tok_per_s={rec['decode_tok_per_s']:.2f} "
+            f"peak_gib={peak:.3f} launches={got} routes={routes} "
+            f"moe_dropped_prefill={rec['moe_dropped_prefill']}"
+            f"/{rec['moe_pairs_prefill']} "
+            f"moe_dropped_decode={rec['moe_dropped_decode']}"
+            f"/{rec['moe_pairs_decode']}; req 0: {run.tokens[0].tolist()}")
+        what = f"families {arch} chunked vs naive"
+        rec.update(_scored(what, cfg, params, prompt_fn, gen, run, tap,
+                           lambda r, p, what=what: _logit_checks(
+                               r, p, SERVE_LOGIT_TOL, what)))
+        rec["plain_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"families {arch} (naive, card, teacher-forced): "
+            f"prefill_s={rec['plain_prefill_s']:.4f} "
+            f"decode_s={rec['plain_decode_s']:.4f} "
+            f"routing_flips={rec['routing_flips']} "
+            f"peak_gib={rec['plain_peak_gib']:.3f}")
+        out[arch] = rec
+        del params, run, tap, prompt, rng, prompt_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for arch, depth, b, prompt_len, gen in FAMILIES_F32:
+        cfg, params, prompt_fn = _family_model(dev, arch, depth, b,
+                                               prompt_len, gen,
+                                               dtype="float32",
+                                               seed=SEED + 1)
+        prompt, rng = prompt_fn()
+        with moe.tap_routing() as tap:
+            run = generate(cfg, params, prompt, gen, rng=rng,
+                           keep_logits=True)
+        what = f"families {arch} f32 depth {depth}"
+        out[f"{arch}_f32"] = _scored(what, cfg, params, prompt_fn, gen, run,
+                                     tap, _f32_check(what))
+        del params, run, tap, prompt, rng, prompt_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"launches": launches, "timings": out}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2175,14 +2461,16 @@ def main() -> int:
     launches = dict(dj.launches)
     log(f"store path: {time.perf_counter() - t0:.3f} s, "
         f"launches={launches}")
-    for r in reps:
-        check_against_replay(r.store, replay, dev, f"replica {r.id}")
+    for rep in reps:
+        check_against_replay(rep.store, replay, dev, f"replica {rep.id}")
     check_against_replay(joined, replay, dev, "a ⊔ b")
     log("replicas equal each other and the numpy replay")
 
     ingest_scaling(a, [n for n, _ in tensors], dev)
     topk_check(a, dev)
-    del reps, a, b, joined
+    # the loop's last replica reaches the simulator and with it all
+    # three stores (5.2 GiB): drop it with the others
+    del reps, rep, a, b, joined
     torch.cuda.empty_cache()
 
     net = net_store_path(dev, tensors)
@@ -2207,6 +2495,11 @@ def main() -> int:
     launches["delta_join"] += timings["train"]["delta_join_launches"]
     timings["train_delta"] = delta_path()
     timings["topk"] = topk_path(dev)
+
+    families = families_path(dev)
+    for name, n in families["launches"].items():
+        launches[name] += n
+    timings["families"] = families["timings"]
     missing = [k for k in TPU_KERNEL if launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on their path: "

@@ -15,20 +15,20 @@ from typing import Dict, List
 from ..models.config import ModelConfig
 
 _MODULES: Dict[str, str] = {
+    "mixtral-8x22b": "mixtral_8x22b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
+    "phi-3-vision-4.2b": "phi3_vision_4_2b",
     "qwen2-1.5b": "qwen2_1_5b",
+    "stablelm-1.6b": "stablelm_1_6b",
     "qwen1.5-0.5b": "qwen1_5_0_5b",
+    "gemma2-27b": "gemma2_27b",
+    "musicgen-large": "musicgen_large",
 }
 
 # ids of the JAX package whose configs wait for a later slice
 _LATER: Dict[str, str] = {
-    "mixtral-8x22b": "slice E, MoE family",
-    "deepseek-v2-236b": "slice E, MoE and MLA families",
-    "phi-3-vision-4.2b": "slice E, remaining dense configs",
-    "stablelm-1.6b": "slice E, remaining dense configs",
-    "gemma2-27b": "slice E, remaining dense configs",
     "mamba2-130m": "slice E, SSM family",
-    "musicgen-large": "slice E, remaining dense configs",
-    "jamba-v0.1-52b": "slice E, SSM and MoE families",
+    "jamba-v0.1-52b": "slice E, SSM family",
 }
 
 ARCH_IDS: List[str] = ["mixtral-8x22b", "deepseek-v2-236b",

@@ -3,10 +3,12 @@ stores, model parameters and KV caches.
 
 Model parameters and caches are pytrees (nested dicts and lists) of numpy
 arrays with the JAX package's layout — ``init_model``'s params (layer
-groups stacked along a leading ``layers`` axis) and ``prefill``'s caches
-(per group, per layer of the super-block, ``{"k", "v", "pos", "idx"}``
-stacked the same way). The port's trees have the same nesting and
-shapes, leaf for leaf.
+groups stacked along a leading ``layers`` axis; MoE layers' ``router``,
+``wi``/``wg``/``wo`` expert stacks and ``shared`` experts, MLA layers'
+latent projections and norms) and ``prefill``'s caches (per group, per
+layer of the super-block, ``{"k", "v", "pos", "idx"}`` for attention and
+``{"ckv", "krope", "pos", "idx"}`` for MLA, stacked the same way). The
+port's trees have the same nesting and shapes, leaf for leaf.
 
 The plain form of a store is ``(entries, life)``:
 

@@ -43,6 +43,10 @@ def make_version(lamport: int, rank: int) -> int:
     return (int(lamport) << RANK_BITS) | int(rank)
 
 
+def version_lamport(v: int) -> int:
+    return int(v) >> RANK_BITS
+
+
 def _host_vers(ct) -> np.ndarray:
     """A dense chunk tensor's version column on the host."""
     return to_numpy(ct.versions)
@@ -622,6 +626,15 @@ def unpack_delta(wire: Dict[str, Any], *, sparse: bool = True) -> TensorState:
             chunks[name] = sparse_chunks(shape[0], idx, vals,
                                          vers).to_dense()
     return TensorState.of(chunks, lamport=wire["lamport"])
+
+
+def packed_size_bytes(wire: Dict[str, Any]) -> int:
+    """Bytes of a :func:`pack_delta` message: an 8-byte header, then per
+    tensor its name and its index, value and version arrays."""
+    total = 8
+    for name, (idx, vals, vers, _shape) in wire["tensors"].items():
+        total += len(name) + idx.nbytes + vals.nbytes + vers.nbytes
+    return total
 
 
 # ---------------------------------------------------------------------------

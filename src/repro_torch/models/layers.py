@@ -10,17 +10,25 @@ is the config dtype (bf16 at full width); the reductions that matter
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..tree import tree_map
 
 
 def _normal(gen: torch.Generator, shape, dtype, scale: float
             ) -> torch.Tensor:
     return torch.randn(shape, generator=gen, device=gen.device,
                        dtype=dtype) * scale
+
+
+def shape_of(params: Any) -> Any:
+    """The tree of ``params`` with each tensor replaced by its shape (a
+    tuple, as the JAX package's ``shape_of`` gives)."""
+    return tree_map(lambda x: tuple(x.shape), params)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Decoder stack over ``LayerSpec`` layouts: training and serving.
 
-* blocks: pre-norm attention + dense MLP (+ gemma2-style post-norms),
-  assembled per the config's layer layout;
+* blocks: pre-norm attention or MLA + dense-or-MoE MLP (+ gemma2-style
+  post-norms), assembled per the config's layer layout;
 * layer parameters are stacked per group of ``layout_groups`` with a
   leading ``layers`` axis, exactly as the JAX package stacks them for its
   ``lax.scan``; the port runs each group as a Python loop over its
@@ -16,8 +16,7 @@
 
 ``input_mode`` selects token embedding, raw embeddings (musicgen frames),
 or token+prefix embeddings (phi-3-vision patches), as in the JAX package.
-MLA and SSM mixers and MoE MLPs come with their model families in a later
-slice.
+The SSM mixer comes with its model family in a later slice.
 """
 
 from __future__ import annotations
@@ -27,13 +26,16 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..tree import tree_map
 from . import attention as attn_mod
+from . import mla as mla_mod
+from . import moe as moe_mod
 from .config import LayerSpec, ModelConfig, layout_groups
 from .layers import (apply_mlp, apply_norm, cross_entropy, embed_tokens,
                      init_embedding, init_mlp, init_norm, lm_logits,
                      sinusoidal_positions)
 
-_LATER = "is not ported yet (slice E, its model family)"
+_LATER = "is not ported yet (slice E, SSM family)"
 AUX_LOSS_WEIGHT = 0.01
 
 
@@ -49,14 +51,20 @@ def _init_layer(cfg: ModelConfig, spec: LayerSpec, gen: torch.Generator,
                 dtype) -> Dict[str, Any]:
     dev = gen.device
     p: Dict[str, Any] = {"norm1": init_norm(cfg, cfg.d_model, dev)}
-    if spec.kind != "attn":
-        raise NotImplementedError(f"{spec.kind!r} mixer {_LATER}")
-    p["mix"] = attn_mod.init_attention(cfg, gen, dtype)
+    if spec.kind == "attn":
+        p["mix"] = attn_mod.init_attention(cfg, gen, dtype)
+    elif spec.kind == "mla":
+        p["mix"] = mla_mod.init_mla(cfg, gen, dtype)
+    elif spec.kind == "ssm":
+        raise NotImplementedError(f"'ssm' mixer {_LATER}")
+    else:
+        raise ValueError(spec.kind)
     if spec.mlp == "dense":
         p["norm2"] = init_norm(cfg, cfg.d_model, dev)
         p["mlp"] = init_mlp(cfg, gen, cfg.d_model, cfg.d_ff, dtype)
     elif spec.mlp == "moe":
-        raise NotImplementedError(f"MoE MLP {_LATER}")
+        p["norm2"] = init_norm(cfg, cfg.d_model, dev)
+        p["mlp"] = moe_mod.init_moe(cfg, gen, dtype)
     elif spec.mlp != "none":
         raise ValueError(spec.mlp)
     if cfg.post_norms:
@@ -104,11 +112,16 @@ def init_model(cfg: ModelConfig, seed: int = 0, *, device="cuda"
         "groups": [],
     }
     for block, repeats in layout_groups(cfg.default_layout()):
-        layers = [[_init_layer(cfg, spec, gen, dtype) for spec in block]
-                  for _ in range(repeats)]
-        params["groups"].append([_stack([layers[r][li]
-                                          for r in range(repeats)])
-                                 for li in range(len(block))])
+        # each repeat is copied into its slot of the stacked tensors as
+        # soon as it is drawn: the peak is the model plus one super-block
+        stacked = None
+        for r in range(repeats):
+            layer = [_init_layer(cfg, spec, gen, dtype) for spec in block]
+            if stacked is None:
+                stacked = tree_map(
+                    lambda t: t.new_empty((repeats,) + tuple(t.shape)), layer)
+            tree_map(lambda s, t, r=r: s[r].copy_(t), stacked, layer)
+        params["groups"].append(stacked)
     return params
 
 
@@ -119,31 +132,37 @@ def init_model(cfg: ModelConfig, seed: int = 0, *, device="cuda"
 def _apply_block(cfg: ModelConfig, spec: LayerSpec, p: Dict,
                  x: torch.Tensor, positions: torch.Tensor, mode: str,
                  cache: Optional[Dict], cache_capacity: Optional[int]
-                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """One decoder block. Returns (x, new_cache)."""
-    if spec.kind != "attn":
+                 ) -> Tuple[torch.Tensor, Optional[Dict],
+                            Optional[torch.Tensor]]:
+    """One decoder block. Returns (x, new_cache, aux_loss), the aux loss
+    None for a block without MoE."""
+    aux = None
+    if spec.kind == "attn":
+        full, step = attn_mod.attend_full, attn_mod.attend_decode
+    elif spec.kind == "mla":
+        full, step = mla_mod.mla_full, mla_mod.mla_decode
+    else:
         raise NotImplementedError(f"{spec.kind!r} mixer {_LATER}")
     h = apply_norm(p["norm1"], x, cfg.norm)
     if mode == "decode":
-        y, new_cache = attn_mod.attend_decode(p["mix"], cfg, spec, h,
-                                              positions, cache)
+        y, new_cache = step(p["mix"], cfg, spec, h, positions, cache)
     else:
-        y, new_cache = attn_mod.attend_full(p["mix"], cfg, spec, h,
-                                            positions,
-                                            make_cache=cache_capacity)
+        y, new_cache = full(p["mix"], cfg, spec, h, positions,
+                            make_cache=cache_capacity)
     if cfg.post_norms:
         y = apply_norm(p["post_attn"], y, cfg.norm)
     x = x + y
 
     if spec.mlp == "none":
-        return x, new_cache
-    if spec.mlp != "dense":
-        raise NotImplementedError(f"{spec.mlp!r} MLP {_LATER}")
+        return x, new_cache, aux
     h = apply_norm(p["norm2"], x, cfg.norm)
-    y = apply_mlp(p["mlp"], h, cfg.act)
+    if spec.mlp == "dense":
+        y = apply_mlp(p["mlp"], h, cfg.act)
+    else:
+        y, aux = moe_mod.apply_moe(p["mlp"], cfg, h)
     if cfg.post_norms:
         y = apply_norm(p["post_mlp"], y, cfg.norm)
-    return x + y, new_cache
+    return x + y, new_cache, aux
 
 
 def _cache_capacity(cfg: ModelConfig, spec: LayerSpec, max_len: int) -> int:
@@ -167,8 +186,10 @@ def _run_stack(cfg: ModelConfig, params: Dict, x: torch.Tensor,
     sequence (each repeated super-block under ``checkpoint`` when
     ``remat``); "prefill" builds the caches (stacked per group as the JAX
     scan stacks them); "decode" updates ``caches`` in place and returns
-    them. ``aux`` is the MoE load-balancing loss, 0 for the dense
-    family."""
+    them. ``aux`` is the MoE load-balancing loss of a "train" run: per
+    repeat the sum over the super-block's layers, summed over the
+    repeats, then over the groups (the JAX package's order); 0 for the
+    dense family and for the serving modes, which do not use it."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}")
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -181,15 +202,23 @@ def _run_stack(cfg: ModelConfig, params: Dict, x: torch.Tensor,
                          for li in range(len(block))]
 
             def body(x, layer_params, block=block):
+                aux_l = torch.zeros((), dtype=torch.float32,
+                                    device=x.device)
                 for li, spec in enumerate(block):
-                    x, _ = _apply_block(cfg, spec, layer_params[li], x,
-                                        positions, mode, None, None)
-                return x
+                    x, _, aux = _apply_block(cfg, spec, layer_params[li], x,
+                                             positions, mode, None, None)
+                    if aux is not None:
+                        aux_l = aux_l + aux
+                return x, aux_l
 
+            aux_stack = []
             for r in range(repeats):
                 layer_params = [per_layer[li][r] for li in range(len(block))]
-                x = (checkpoint(body, x, layer_params, use_reentrant=False)
-                     if remat else body(x, layer_params))
+                x, aux_l = (checkpoint(body, x, layer_params,
+                                       use_reentrant=False)
+                            if remat else body(x, layer_params))
+                aux_stack.append(aux_l)
+            aux_total = aux_total + torch.stack(aux_stack).sum()
             continue
         group_cache = caches[gi] if caches is not None else None
         made: List[List[Dict]] = [[] for _ in block]
@@ -199,8 +228,8 @@ def _run_stack(cfg: ModelConfig, params: Dict, x: torch.Tensor,
                      else None)
                 cap = (_cache_capacity(cfg, spec, max_len)
                        if mode == "prefill" else None)
-                x, nc = _apply_block(cfg, spec, _layer(stacked[li], r), x,
-                                     positions, mode, c, cap)
+                x, nc, _ = _apply_block(cfg, spec, _layer(stacked[li], r),
+                                        x, positions, mode, c, cap)
                 made[li].append(nc)
         new_caches.append([_stack(m) for m in made] if mode == "prefill"
                           else group_cache)
@@ -300,6 +329,8 @@ def caches_max_len(caches: List) -> int:
         for c in group:
             if c is not None and "k" in c:
                 best = max(best, c["k"].shape[2])   # [layers,b,C,kv,hd]
+            elif c is not None and "ckv" in c:
+                best = max(best, c["ckv"].shape[2])
     return best
 
 
@@ -313,13 +344,15 @@ def init_caches(cfg: ModelConfig, params: Dict, b: int, max_len: int,
     for block, repeats in layout_groups(cfg.default_layout()):
         sub = []
         for spec in block:
-            if spec.kind != "attn":
+            cap = _cache_capacity(cfg, spec, max_len)
+            if spec.kind == "attn":
+                c = attn_mod.init_kv_cache(b, cap, cfg.n_kv_heads,
+                                           cfg.resolved_head_dim(), dtype,
+                                           device)
+            elif spec.kind == "mla":
+                c = mla_mod.init_mla_cache(b, cap, cfg.mla, dtype, device)
+            else:
                 raise NotImplementedError(f"{spec.kind!r} cache {_LATER}")
-            c = attn_mod.init_kv_cache(b, _cache_capacity(cfg, spec,
-                                                          max_len),
-                                       cfg.n_kv_heads,
-                                       cfg.resolved_head_dim(), dtype,
-                                       device)
             sub.append({k: v[None].repeat((repeats,) + (1,) * v.dim())
                         for k, v in c.items()})
         caches.append(sub)

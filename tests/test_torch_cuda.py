@@ -166,6 +166,10 @@ FLASH_CASES = [
     (2, 6, 2, 100, 16, {"window": 40, "softcap": 20.0}),   # ragged
     (1, 2, 1, 130, 256, {}),                               # widest head
     (1, 3, 3, 33, 8, {}),                                  # narrow head
+    # gemma2-27b served: a local layer's window, the softcap, 144^-1/2
+    (1, 32, 16, 4608, 128, {"window": 4096, "softcap": 50.0,
+                            "scale": 144.0 ** -0.5}),
+    (2, 32, 32, 1024, 96, {}),                             # phi-3-vision
 ]
 
 
@@ -209,6 +213,12 @@ DECODE_CASES = [
     (1, 4, 2, 128, 64, 300, {"window": 128}, ()),           # wrapped ring
     (2, 12, 2, 1032, 128, 1010, {"scale": 0.0825}, ()),     # ragged tiles
     (3, 4, 2, 96, 256, 50, {"window": 16}, (1,)),           # no valid slot
+    # gemma2-27b served after a 4,608-token prompt: the local layers'
+    # 4,096-slot ring has wrapped; the global layers' cache has not
+    (1, 32, 16, 4096, 128, 4620, {"window": 4096, "softcap": 50.0,
+                                  "scale": 144.0 ** -0.5}, ()),
+    (1, 32, 16, 4624, 128, 4620, {"softcap": 50.0,
+                                  "scale": 144.0 ** -0.5}, ()),
 ]
 
 
@@ -264,7 +274,8 @@ def test_flash_kernels_take_the_models_layouts(card):
     (torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
     (torch.float16, 64, "tc"), (torch.float16, 128, "tc"),
     (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
-    (torch.bfloat16, 32, "simt"), (torch.float16, 256, "simt")])
+    (torch.bfloat16, 32, "simt"), (torch.float16, 256, "simt"),
+    (torch.bfloat16, 96, "simt")])                         # phi-3-vision
 def test_prefill_takes_the_route_of_its_rule(card, dtype, hd, route):
     """bf16 / f16 at head_dim 64 or 128 launch the tensor-core kernel,
     everything else the CUDA-core one; both match the plain version."""
@@ -646,3 +657,45 @@ def test_train_step_on_the_card_matches_the_cpu(card):
     assert out["cuda"][2] == out["cpu"][2] == 8
     for a, b in zip(out["cuda"][1], out["cpu"][1]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# MoE dispatch (repro_torch.models.moe) at the served widths
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,n", [("mixtral-8x22b", 2000),
+                                    ("deepseek-v2-236b", 2000),
+                                    ("deepseek-v2-236b", 2)])
+def test_moe_dispatch_on_the_card_equals_the_cpu(card, arch, n):
+    """Under ``torch.use_deterministic_algorithms``: the router's top-k
+    with exact ties (duplicated router columns, all-zero tokens, tokens
+    that pick one router row) breaks them to the lower expert on the card
+    as on the CPU, and the dispatch table of the same expert ids, at the
+    config's capacity and at one slot an expert, is bit-equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config(arch)
+    E, d = cfg.moe.num_experts, cfg.d_model
+    g = torch.Generator().manual_seed(n + E)
+    router = torch.randn((d, E), generator=g) / d ** 0.5
+    router[:, 3] = router[:, 1]
+    router[:, E - 1] = router[:, 0]
+    rows = torch.randint(0, d, (n,), generator=g)
+    xf = torch.zeros((n, d))
+    xf[torch.arange(n), rows] = 1.0
+    xf[::3] = 0.0
+    torch.use_deterministic_algorithms(True)
+    try:
+        want = moe._route(router, cfg, xf)[1]
+        got = moe._route(router.to(card), cfg, xf.to(card))[1]
+        assert torch.equal(got.cpu(), want)
+        for cap in (moe.moe_capacity(cfg, n), 1):
+            t_cpu, m = moe._dispatch_table(want, E, cap)
+            t_card, _ = moe._dispatch_table(want.to(card), E, cap)
+            assert torch.equal(t_card.cpu(), t_cpu)
+            assert int((t_cpu < m).sum()) == int(torch.minimum(
+                torch.bincount(want.reshape(-1), minlength=E),
+                torch.tensor(cap)).sum())
+    finally:
+        torch.use_deterministic_algorithms(False)

@@ -3,14 +3,16 @@ parameters carried over with ``convert.params_from_numpy``, the same
 prompt through both ``prefill``s (last-position logits and every cache)
 and then 8 greedy ``decode_step``s (logits, tokens, cache positions), in
 f32 at rtol = atol = 1e-4, for both attention paths — REDUCED qwen1.5 and
-qwen2, and a one-layer config with a sliding window (whose ring is
-smaller than the prompt), a softcap and a query scale. Plus: the port's
+qwen2, a one-layer config with a sliding window (whose ring is smaller
+than the prompt), a softcap and a query scale, and the REDUCED gemma2,
+stablelm, mixtral (MoE) and deepseek-v2 (MLA + MoE). Plus: the port's
 naive and chunked paths agree, its own ``init_model`` lays parameters
 out leaf for leaf as the JAX package does, and the layers the served
 configs do not reach (layer norm, GeGLU/GELU, partial rotary, scaled
 embeddings, an untied softcapped head, sinusoidal positions) match."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -44,25 +46,41 @@ def _windowed(cls, spec_cls):
                attn_softcap=30.0, query_scale=0.125, dtype="float32")
 
 
+def _reduced(arch):
+    return lambda: (jget_config(arch, reduced=True),
+                    get_config(arch, reduced=True))
+
+
 CONFIGS = {
-    "qwen1.5-reduced": lambda: (jget_config("qwen1.5-0.5b", reduced=True),
-                                get_config("qwen1.5-0.5b", reduced=True)),
-    "qwen2-reduced": lambda: (jget_config("qwen2-1.5b", reduced=True),
-                              get_config("qwen2-1.5b", reduced=True)),
+    "qwen1.5-reduced": _reduced("qwen1.5-0.5b"),
+    "qwen2-reduced": _reduced("qwen2-1.5b"),
     "window+softcap": lambda: (_windowed(JModelConfig, JLayerSpec),
                                _windowed(ModelConfig, LayerSpec)),
+    # the token-input ids of the later families
+    "gemma2-reduced": _reduced("gemma2-27b"),
+    "stablelm-reduced": _reduced("stablelm-1.6b"),
+    "mixtral-reduced": _reduced("mixtral-8x22b"),
+    "deepseek-v2-reduced": _reduced("deepseek-v2-236b"),
 }
+UNPORTED = ("mamba2-130m", "jamba-v0.1-52b")       # slice E, SSM family
 
 
 def _np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_params(name, seed):
+    """The JAX parameters of a case (they do not depend on the attention
+    path), made once."""
+    return jinit_model(CONFIGS[name]()[0], jax.random.PRNGKey(seed))[0]
+
+
 def _setup(name, impl, seed=0):
     jcfg, cfg = CONFIGS[name]()
     jcfg = dataclasses.replace(jcfg, attn_impl=impl, attn_block=8)
     cfg = dataclasses.replace(cfg, attn_impl=impl, attn_block=8)
-    jparams, _ = jinit_model(jcfg, jax.random.PRNGKey(seed))
+    jparams = _jax_params(name, seed)
     params = params_from_numpy(_np_tree(jparams), device="cpu")
     tok = np.random.default_rng(seed).integers(
         0, cfg.vocab, (B, PROMPT)).astype(np.int32)
@@ -70,11 +88,14 @@ def _setup(name, impl, seed=0):
 
 
 def _check_caches(got, want):
+    """KV caches ({k, v, pos, idx}) and MLA latent caches ({ckv, krope,
+    pos, idx}): values to TOL, positions and write counters exactly."""
     got, want = tree_to_numpy(got), _np_tree(want)
     for g_group, w_group in zip(got, want, strict=True):
         for g, w in zip(g_group, w_group, strict=True):
-            np.testing.assert_allclose(g["k"], w["k"], **TOL)
-            np.testing.assert_allclose(g["v"], w["v"], **TOL)
+            assert sorted(g) == sorted(w)
+            for name in sorted(set(g) - {"pos", "idx"}):
+                np.testing.assert_allclose(g[name], w[name], **TOL)
             np.testing.assert_array_equal(g["pos"], w["pos"])
             np.testing.assert_array_equal(g["idx"], w["idx"])
 
@@ -84,8 +105,9 @@ def _check_caches(got, want):
 def test_prefill_and_greedy_decode_match_jax(name, impl):
     jcfg, cfg, jparams, params, tok = _setup(name, impl)
     max_len = PROMPT + STEPS + 1
-    jlogits, jcaches = jprefill(jcfg, jparams, {"tokens": jnp.asarray(tok)},
-                                max_len=max_len)
+    jlogits, jcaches = jax.jit(lambda p, x: jprefill(
+        jcfg, p, x, max_len=max_len))(jparams, {"tokens": jnp.asarray(tok)})
+    jstep = jax.jit(lambda p, t, pos, c: jdecode_step(jcfg, p, t, pos, c))
     logits, caches = prefill(cfg, params, {"tokens": torch.from_numpy(tok)},
                              max_len=max_len)
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
@@ -98,7 +120,7 @@ def test_prefill_and_greedy_decode_match_jax(name, impl):
         np.testing.assert_array_equal(t.numpy(), np.asarray(jt))
         jpos = jnp.full((B, 1), PROMPT + k, jnp.int32)
         pos = torch.full((B, 1), PROMPT + k, dtype=torch.int32)
-        jlogits, jcaches = jdecode_step(jcfg, jparams, jt, jpos, jcaches)
+        jlogits, jcaches = jstep(jparams, jt, jpos, jcaches)
         logits, caches = decode_step(cfg, params, t, pos, caches)
         np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
                                    **TOL)
@@ -167,13 +189,14 @@ def test_init_model_is_seeded():
 
 def test_unported_archs_name_their_slice():
     for arch in ARCH_IDS:
-        if arch in ("qwen1.5-0.5b", "qwen2-1.5b"):
+        if arch not in UNPORTED:
             continue
-        with pytest.raises(NotImplementedError, match="slice E"):
+        with pytest.raises(NotImplementedError, match="slice E, SSM"):
             get_config(arch)
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "qwen2-1.5b"])
+@pytest.mark.parametrize("arch", [a for a in ARCH_IDS
+                                  if a not in UNPORTED])
 @pytest.mark.parametrize("reduced", [False, True])
 def test_configs_equal_the_jax_packages(arch, reduced):
     got = dataclasses.asdict(get_config(arch, reduced=reduced))

@@ -84,7 +84,7 @@ def test_replicate_rejects_a_basic_mode_policy(capsys):
 
 
 @pytest.mark.parametrize("argv, slice_", [
-    (["--arch", "gemma2-27b"], "slice E"),
+    (["--arch", "mamba2-130m"], "slice E"),
 ])
 def test_unported_modes_exit_naming_their_slice(argv, slice_, capsys):
     with pytest.raises(SystemExit) as e:
@@ -102,27 +102,41 @@ def test_prompt_is_the_jax_serves():
     np.testing.assert_array_equal(prompt["tokens"].numpy(), want)
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "qwen2-1.5b"])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "qwen2-1.5b",
+                                  "gemma2-27b", "stablelm-1.6b",
+                                  "phi-3-vision-4.2b", "musicgen-large",
+                                  "mixtral-8x22b", "deepseek-v2-236b"])
 def test_generate_yields_the_jax_loops_tokens(arch):
     """The JAX serve.py greedy loop and the port's ``generate`` on the same
-    parameters and prompt give the same tokens."""
-    b, prompt_len, gen = 2, 12, 6
+    parameters and prompt give the same tokens (musicgen's decode steps
+    draw their frame embeddings from the prompt's generator in both)."""
+    b, gen = 2, 6
     jcfg, cfg = jget_config(arch, reduced=True), get_config(arch,
                                                             reduced=True)
-    jparams, _ = jinit_model(jcfg, jax.random.PRNGKey(0))
+    prompt_len = cfg.prefix_len + 12
+    jparams = jax.jit(lambda k: jinit_model(jcfg, k)[0])(
+        jax.random.PRNGKey(0))
     params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
                                device="cpu")
-    prompt, _ = serve.make_prompt(cfg, b, prompt_len, seed=0, device="cpu")
-    run = serve.generate(cfg, params, prompt, gen, keep_logits=True)
+    prompt, rng = serve.make_prompt(cfg, b, prompt_len, seed=0,
+                                    device="cpu")
+    run = serve.generate(cfg, params, prompt, gen, rng=rng, keep_logits=True)
 
-    logits, caches = jprefill(jcfg, jparams,
-                              {"tokens": jnp.asarray(prompt["tokens"])},
-                              max_len=prompt_len + gen)
+    jprompt, jrng = serve.make_prompt(cfg, b, prompt_len, seed=0,
+                                      device="cpu")
+    logits, caches = jax.jit(lambda p, x: jprefill(
+        jcfg, p, x, max_len=prompt_len + gen))(
+        jparams, {k: jnp.asarray(v.numpy()) for k, v in jprompt.items()})
+    jstep = jax.jit(lambda p, t, pos, c: jdecode_step(jcfg, p, t, pos, c))
     tok = jnp.argmax(logits[:, -1], axis=-1)[:, None].astype(jnp.int32)
     want = [np.asarray(tok)]
     for k in range(gen - 1):
         pos = jnp.full((b, 1), prompt_len + k, jnp.int32)
-        logits, caches = jdecode_step(jcfg, jparams, tok, pos, caches)
+        step_in = tok
+        if cfg.input_mode == "embeds":
+            step_in = jnp.asarray(jrng.normal(size=(b, 1, cfg.d_model))
+                                  .astype(np.float32))
+        logits, caches = jstep(jparams, step_in, pos, caches)
         tok = jnp.argmax(logits[:, -1], axis=-1)[:, None].astype(jnp.int32)
         want.append(np.asarray(tok))
     np.testing.assert_array_equal(run.tokens, np.concatenate(want, axis=1))
