@@ -119,27 +119,36 @@ NVIDIA card. Run from the root of a checkout:
    (and of ``torch.topk``'s selection, a yardstick, where the embedding's
    sort passes 50 ms); the embedding's and one stacked leaf's indices and
    values bit-equal to a stable CPU argsort.
-11. Families: the other six architectures the port serves, each at its
-   published widths (bf16, random weights from the seed, every earlier
-   tensor freed first) through ``launch.serve``'s ``generate`` with
-   ``attn_impl="chunked"``: gemma2-27b (all 46 layers, 1 request of
+11. Families: the other eight architectures the port serves, each at
+   its published widths (bf16, random weights from the seed, every
+   earlier tensor freed first) through ``launch.serve``'s ``generate``
+   with ``attn_impl="chunked"``: gemma2-27b (all 46 layers, 1 request of
    4,608 prompt tokens, so the local layers' 4,096-slot rings wrap in
    decode), stablelm-1.6b, phi-3-vision-4.2b (256 patch embeddings + 768
-   tokens), musicgen-large (frame embeddings) at full depth, and
-   mixtral-8x22b (4 of 56 layers) and deepseek-v2-236b (3 of 60: the
-   dense layer and 2 MoE) cut in depth; 16 tokens out each. The flash
-   launches are counted from 0 around each served run: one prefill
-   launch per attention layer (phi-3-vision's head_dim 96 on the
-   CUDA-core route, the others on the tensor cores) and one decode launch
-   per attention layer and step; deepseek's MLA launches none. Each is
-   scored by the plain path under the serve phase's bf16 rule; then
-   gemma2 (one local and one global layer, 4,608 tokens), mixtral and
-   deepseek at full width, 2 layers deep, in f32 at rtol = atol = 1e-3.
-   Where a check fails while the MoE routing flipped between the two
-   paths (a near-tie decided the other way), the flips are printed and
-   the plain path is scored again on the served routing; without flips
-   a failure stands. Per model: prefill s, decode tok/s, peak GiB, flash
-   launches by route and MoE pairs dropped at prefill and decode.
+   tokens), musicgen-large (frame embeddings) and mamba2-130m (24 SSD
+   layers, 2 × 4,096 tokens: 16 chunks of 256 a sequence) at full depth,
+   and mixtral-8x22b (4 of 56 layers), deepseek-v2-236b (3 of 60: the
+   dense layer and 2 MoE) and jamba-v0.1-52b (the first 8 of 32 layers,
+   one period of its interleave: 7 SSD + 1 attention, 4 dense + 4 MoE)
+   cut in depth; 16 tokens out each. The flash launches are counted from
+   0 around each served run: one prefill launch per attention layer
+   (phi-3-vision's head_dim 96 on the CUDA-core route, the others on the
+   tensor cores) and one decode launch per attention layer and step;
+   deepseek's MLA and mamba2's SSD launch none (the SSD mixer has no
+   kernel in either package). Each is scored by the plain path under
+   the serve phase's bf16 rule; then gemma2 (one local and one global
+   layer, 4,608 tokens), mixtral and deepseek at full width, 2 layers
+   deep, and jamba's layers 3–4 (SSD + MoE, attention + dense) in f32 at
+   rtol = atol = 1e-3. Where a check fails while the MoE routing flipped
+   between the two paths (a near-tie decided the other way), the flips
+   are printed and the plain path is scored again on the served routing;
+   without flips a failure stands. Per model: prefill s, decode tok/s,
+   peak GiB, flash launches by route and MoE pairs dropped at prefill
+   and decode. Last, the SSD recurrence gate: mamba2 at full width and
+   depth, in f32 (rtol = atol = 1e-3) and bf16 (the serve rule), its
+   prefill and 15 decode steps fed the served tokens against
+   ``forward`` over 4,096 + 256 tokens whose first 4,096 + 16 are the
+   prompt and the served tokens.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase
 raises and the script exits non-zero without it, as it does when no card
@@ -207,22 +216,30 @@ F32_RTOL = F32_ATOL = 1e-3
 SERVE_REPEATS = 5                # timed runs of each attn_impl, in turns
 SESSION_GATEWAYS = 3
 # phase 11, the families: every other architecture the port serves, at its
-# published widths (random bf16 weights from the seed); the two MoE
-# models cut in depth to fit one card
-FAMILIES = (   # arch, layers on the card (None: all), requests, prompt, out
+# published widths (random bf16 weights from the seed); the MoE models
+# cut in depth to fit one card. Layers: None for all, N for the first N,
+# (start, stop) for that slice of the layout
+FAMILIES = (   # arch, layers on the card, requests, prompt, out
     ("gemma2-27b", None, 1, 4608, 16),       # crosses the 4,096 window
     ("stablelm-1.6b", None, 2, 1000, 16),
     ("phi-3-vision-4.2b", None, 2, 1024, 16),   # 256 patches + 768 tokens
     ("musicgen-large", None, 2, 1000, 16),   # frame embeddings in
     ("mixtral-8x22b", 4, 2, 1000, 16),       # 4 of 56 layers
     ("deepseek-v2-236b", 3, 2, 1000, 16),    # the dense layer and 2 MoE
+    ("mamba2-130m", None, 2, 4096, 16),      # 16 chunks of 256 a sequence
+    ("jamba-v0.1-52b", 8, 2, 1024, 16),      # one period: 7 SSM + 1 attn
 )
 FAMILY_ROUTE = {"phi-3-vision-4.2b": "simt"}   # head_dim 96; others tc
 FAMILIES_F32 = (   # arch, layers, requests, prompt, out: f32, full width
     ("gemma2-27b", 2, 1, 4608, 8),           # one local, one global layer
     ("mixtral-8x22b", 2, 2, 1000, 8),
     ("deepseek-v2-236b", 2, 2, 1000, 8),     # the dense layer and 1 MoE
+    ("jamba-v0.1-52b", (3, 5), 2, 1024, 8),  # SSM + MoE, attn + dense
 )
+# the SSD recurrence (prefill, then decode steps) against the chunked
+# form over a longer sequence, in f32 (F32_RTOL) and bf16
+# (SERVE_LOGIT_TOL): arch, requests, prompt, out
+SSM_GATE = ("mamba2-130m", 2, 4096, 16)
 # dot stores at the sizes of an OR-Set / session-table deployment
 # (benchmarks/bench_dots.py): a 1,062,500-dot causal join over 4
 # replicas, and a reconnect of a 999,000-dot ORMap (2,000 keys of 500
@@ -2188,12 +2205,15 @@ def topk_path(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 def _cut(cfg, depth):
-    """``cfg`` at its published widths, its first ``depth`` layers."""
+    """``cfg`` at its published widths, cut to ``depth``: its first
+    ``depth`` layers, or with a ``(start, stop)`` pair that slice of its
+    layout."""
     import dataclasses
     if depth is None:
         return cfg
-    return dataclasses.replace(cfg, n_layers=depth,
-                               layout=cfg.default_layout()[:depth])
+    start, stop = (0, depth) if isinstance(depth, int) else depth
+    layout = cfg.default_layout()[start:stop]
+    return dataclasses.replace(cfg, n_layers=len(layout), layout=layout)
 
 
 def _check_family_launches(arch, cfg, gen, got, routes) -> None:
@@ -2259,7 +2279,7 @@ def _scored(what, cfg, params, prompt_fn, gen, run, tap, check):
     return rec
 
 
-def _f32_check(what):
+def _f32_check(what, pair="chunked equals naive"):
     """``check`` for :func:`_scored`: every step at rtol = atol =
     ``F32_RTOL`` and the same greedy tokens."""
     import torch
@@ -2274,9 +2294,8 @@ def _f32_check(what):
             worst = max(worst, float((s_lg - p_lg).abs().max()))
         if not np.array_equal(run.tokens, plain.tokens):
             raise AssertionError(f"{what}: greedy tokens differ")
-        log(f"{what}: chunked equals naive within rtol=atol={F32_RTOL} at "
-            f"all {len(run.logits)} steps (max gap {worst:.3e}), same "
-            "tokens")
+        log(f"{what}: {pair} within rtol=atol={F32_RTOL} at all "
+            f"{len(run.logits)} steps (max gap {worst:.3e}), same tokens")
         return {"max_gap": worst}
     return check
 
@@ -2329,6 +2348,57 @@ def _held_tensors(top=6) -> str:
                    f"held by {', '.join(chain)}")
     del found
     return f"{len(out)} largest: " + "; ".join(out)
+
+
+def ssm_recurrence_gate(dev) -> dict:
+    """``SSM_GATE``'s model at full width and depth, in f32 and bf16:
+    the served run (prefill, then decode steps fed the served tokens)
+    against ``forward`` over the prompt, the served tokens and filler to
+    one more chunk. The model is causal, so forward's logits at the
+    prompt's last position and at each served token are the served
+    steps'. The served-vs-plain check cannot see the recurrence: for an
+    attention-free model both paths run the same code."""
+    import types
+
+    import torch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import forward
+
+    arch, b, prompt_len, gen = SSM_GATE
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg, params, prompt_fn = _family_model(dev, arch, None, b,
+                                               prompt_len, gen, dtype=dtype,
+                                               seed=SEED + 2)
+        n = prompt_len + cfg.ssm.chunk
+        if prompt_len % cfg.ssm.chunk or gen > cfg.ssm.chunk:
+            raise ValueError(f"SSM_GATE {SSM_GATE} does not fit the chunk")
+        prompt, rng = prompt_fn()
+        run = generate(cfg, params, prompt, gen, rng=rng, keep_logits=True)
+        served = torch.from_numpy(run.tokens).to(dev)
+        filler = torch.zeros((b, n - prompt_len - gen), dtype=torch.int32,
+                             device=dev)
+        seq = torch.cat([prompt["tokens"], served, filler], dim=1)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, _ = forward(cfg, params, {"tokens": seq}, remat=False)
+        at = logits[:, prompt_len - 1:prompt_len - 1 + gen]
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t0
+        chunked = types.SimpleNamespace(
+            logits=list(at.unbind(1)), tokens=at.argmax(-1).cpu().numpy())
+        what = f"ssm recurrence {arch} {dtype} ({n}-token forward)"
+        pair = "prefill + decode equals the chunked forward"
+        if dtype == "float32":
+            rec = _f32_check(what, pair)(run, chunked)
+        else:
+            rec = _logit_checks(run, chunked, SERVE_LOGIT_TOL, what)
+        rec.update(forward_s=forward_s, prefill_s=run.prefill_s,
+                   decode_s=run.decode_s)
+        out[dtype] = rec
+        del params, run, logits, at, chunked, prompt, rng, prompt_fn
+        torch.cuda.empty_cache()
+    return out
 
 
 def families_path(dev) -> dict:
@@ -2422,12 +2492,13 @@ def families_path(dev) -> dict:
         with moe.tap_routing() as tap:
             run = generate(cfg, params, prompt, gen, rng=rng,
                            keep_logits=True)
-        what = f"families {arch} f32 depth {depth}"
+        what = f"families {arch} f32 layers {depth}"
         out[f"{arch}_f32"] = _scored(what, cfg, params, prompt_fn, gen, run,
                                      tap, _f32_check(what))
         del params, run, tap, prompt, rng, prompt_fn
         gc.collect()
         torch.cuda.empty_cache()
+    out["ssm_recurrence"] = ssm_recurrence_gate(dev)
     return {"launches": launches, "timings": out}
 
 

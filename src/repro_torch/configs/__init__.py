@@ -3,8 +3,7 @@
 The ids are the JAX package's. Each ported module defines the exact
 published ``CONFIG`` plus a ``REDUCED`` config of the same family (same
 layer-kind pattern, same structural features, tiny dims) for CPU tests,
-with the same values as the JAX package's. An id whose config is not
-ported yet raises ``NotImplementedError`` naming the slice that brings it.
+with the same values as the JAX package's.
 """
 
 from __future__ import annotations
@@ -22,13 +21,9 @@ _MODULES: Dict[str, str] = {
     "stablelm-1.6b": "stablelm_1_6b",
     "qwen1.5-0.5b": "qwen1_5_0_5b",
     "gemma2-27b": "gemma2_27b",
+    "mamba2-130m": "mamba2_130m",
     "musicgen-large": "musicgen_large",
-}
-
-# ids of the JAX package whose configs wait for a later slice
-_LATER: Dict[str, str] = {
-    "mamba2-130m": "slice E, SSM family",
-    "jamba-v0.1-52b": "slice E, SSM family",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
 }
 
 ARCH_IDS: List[str] = ["mixtral-8x22b", "deepseek-v2-236b",
@@ -38,9 +33,6 @@ ARCH_IDS: List[str] = ["mixtral-8x22b", "deepseek-v2-236b",
 
 
 def get_config(arch_id: str, reduced: bool = False) -> ModelConfig:
-    if arch_id in _LATER:
-        raise NotImplementedError(f"arch {arch_id!r} is not ported yet "
-                                  f"({_LATER[arch_id]})")
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     mod = importlib.import_module(f"{__name__}.{_MODULES[arch_id]}")

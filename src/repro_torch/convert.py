@@ -5,10 +5,12 @@ Model parameters and caches are pytrees (nested dicts and lists) of numpy
 arrays with the JAX package's layout — ``init_model``'s params (layer
 groups stacked along a leading ``layers`` axis; MoE layers' ``router``,
 ``wi``/``wg``/``wo`` expert stacks and ``shared`` experts, MLA layers'
-latent projections and norms) and ``prefill``'s caches (per group, per
-layer of the super-block, ``{"k", "v", "pos", "idx"}`` for attention and
-``{"ckv", "krope", "pos", "idx"}`` for MLA, stacked the same way). The
-port's trees have the same nesting and shapes, leaf for leaf.
+latent projections and norms, SSM layers' ``w_z``/``w_xbc``/``w_dt``,
+conv and f32 decay parameters) and ``prefill``'s caches (per group, per
+layer of the super-block, ``{"k", "v", "pos", "idx"}`` for attention,
+``{"ckv", "krope", "pos", "idx"}`` for MLA and ``{"ssm", "conv", "idx"}``
+for SSM, stacked the same way). The port's trees have the same nesting
+and shapes, leaf for leaf.
 
 The plain form of a store is ``(entries, life)``:
 

@@ -11,7 +11,8 @@ it: ``--device``; ``--attn-impl`` (``chunked``, the default, serves
 attention through the hand-written flash kernels on the card;
 ``naive`` through plain products); ``--full`` serves the published
 ``CONFIG`` instead of the ``REDUCED`` one that the JAX package's
-serve.py always takes.
+serve.py always takes. An SSM config's (mamba2, jamba) prompt length
+rounds to its SSD chunk, as there (:func:`ssm_prompt_len`).
 
 ``--replicate N`` then replicates the batch's session table as an
 ``ORMap(request → MVRegister status)`` over N causal gateway replicas on
@@ -86,6 +87,13 @@ def make_prompt(cfg: ModelConfig, b: int, prompt_len: int, seed: int,
         return {"tokens": tok,
                 "prefix_embeds": embeds((b, cfg.prefix_len, cfg.d_model))}, rng
     return {"tokens": tokens(prompt_len)}, rng
+
+
+def ssm_prompt_len(cfg: ModelConfig, prompt_len: int) -> int:
+    """The JAX package's serve.py rounding of an SSM config's prompt:
+    down to a multiple of the SSD chunk, and at least one chunk (its
+    prefill takes chunk-aligned lengths)."""
+    return max(cfg.ssm.chunk, (prompt_len // cfg.ssm.chunk) * cfg.ssm.chunk)
 
 
 @dataclasses.dataclass
@@ -269,11 +277,10 @@ def main(argv: Optional[List[str]] = None) -> None:
             _socket_sessions(args, spec)
         return
 
-    try:
-        cfg = get_config(args.arch, reduced=not args.full)
-    except NotImplementedError as e:
-        ap.error(str(e))
-    cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
+    cfg = dataclasses.replace(get_config(args.arch, reduced=not args.full),
+                              attn_impl=args.attn_impl)
+    if cfg.ssm is not None:
+        args.prompt_len = ssm_prompt_len(cfg, args.prompt_len)
 
     device = torch.device(args.device)
     params = init_model(cfg, args.seed, device=device)

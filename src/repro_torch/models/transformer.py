@@ -1,7 +1,8 @@
 """Decoder stack over ``LayerSpec`` layouts: training and serving.
 
-* blocks: pre-norm attention or MLA + dense-or-MoE MLP (+ gemma2-style
-  post-norms), assembled per the config's layer layout;
+* blocks: pre-norm attention, MLA or the SSD mixer + dense-or-MoE MLP,
+  or no MLP (mamba2's pure mixer blocks) (+ gemma2-style post-norms),
+  assembled per the config's layer layout;
 * layer parameters are stacked per group of ``layout_groups`` with a
   leading ``layers`` axis, exactly as the JAX package stacks them for its
   ``lax.scan``; the port runs each group as a Python loop over its
@@ -16,7 +17,6 @@
 
 ``input_mode`` selects token embedding, raw embeddings (musicgen frames),
 or token+prefix embeddings (phi-3-vision patches), as in the JAX package.
-The SSM mixer comes with its model family in a later slice.
 """
 
 from __future__ import annotations
@@ -30,12 +30,12 @@ from ..tree import tree_map
 from . import attention as attn_mod
 from . import mla as mla_mod
 from . import moe as moe_mod
+from . import ssm as ssm_mod
 from .config import LayerSpec, ModelConfig, layout_groups
 from .layers import (apply_mlp, apply_norm, cross_entropy, embed_tokens,
                      init_embedding, init_mlp, init_norm, lm_logits,
                      sinusoidal_positions)
 
-_LATER = "is not ported yet (slice E, SSM family)"
 AUX_LOSS_WEIGHT = 0.01
 
 
@@ -56,7 +56,7 @@ def _init_layer(cfg: ModelConfig, spec: LayerSpec, gen: torch.Generator,
     elif spec.kind == "mla":
         p["mix"] = mla_mod.init_mla(cfg, gen, dtype)
     elif spec.kind == "ssm":
-        raise NotImplementedError(f"'ssm' mixer {_LATER}")
+        p["mix"] = ssm_mod.init_ssm(cfg, gen, dtype)
     else:
         raise ValueError(spec.kind)
     if spec.mlp == "dense":
@@ -65,7 +65,7 @@ def _init_layer(cfg: ModelConfig, spec: LayerSpec, gen: torch.Generator,
     elif spec.mlp == "moe":
         p["norm2"] = init_norm(cfg, cfg.d_model, dev)
         p["mlp"] = moe_mod.init_moe(cfg, gen, dtype)
-    elif spec.mlp != "none":
+    elif spec.mlp != "none":   # "none": pure mixer block (mamba2)
         raise ValueError(spec.mlp)
     if cfg.post_norms:
         p["post_attn"] = init_norm(cfg, cfg.d_model, dev)
@@ -137,18 +137,27 @@ def _apply_block(cfg: ModelConfig, spec: LayerSpec, p: Dict,
     """One decoder block. Returns (x, new_cache, aux_loss), the aux loss
     None for a block without MoE."""
     aux = None
-    if spec.kind == "attn":
-        full, step = attn_mod.attend_full, attn_mod.attend_decode
-    elif spec.kind == "mla":
-        full, step = mla_mod.mla_full, mla_mod.mla_decode
-    else:
-        raise NotImplementedError(f"{spec.kind!r} mixer {_LATER}")
     h = apply_norm(p["norm1"], x, cfg.norm)
-    if mode == "decode":
-        y, new_cache = step(p["mix"], cfg, spec, h, positions, cache)
+    if spec.kind == "ssm":
+        if mode == "decode":
+            y, new_cache = ssm_mod.ssm_decode(p["mix"], cfg, h, cache)
+        else:
+            # prefill gives SSM layers a capacity of 0: build the cache
+            # on the capacity's presence, not its truth
+            y, new_cache = ssm_mod.ssm_full(
+                p["mix"], cfg, h, make_cache=cache_capacity is not None)
     else:
-        y, new_cache = full(p["mix"], cfg, spec, h, positions,
-                            make_cache=cache_capacity)
+        if spec.kind == "attn":
+            full, step = attn_mod.attend_full, attn_mod.attend_decode
+        elif spec.kind == "mla":
+            full, step = mla_mod.mla_full, mla_mod.mla_decode
+        else:
+            raise ValueError(spec.kind)
+        if mode == "decode":
+            y, new_cache = step(p["mix"], cfg, spec, h, positions, cache)
+        else:
+            y, new_cache = full(p["mix"], cfg, spec, h, positions,
+                                make_cache=cache_capacity)
     if cfg.post_norms:
         y = apply_norm(p["post_attn"], y, cfg.norm)
     x = x + y
@@ -322,6 +331,8 @@ def decode_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
 
 
 def caches_max_len(caches: List) -> int:
+    """The most slots of any attention or MLA cache (1 if none: SSM
+    caches carry no slots)."""
     best = 1
     for group in caches:
         if group is None:
@@ -351,8 +362,10 @@ def init_caches(cfg: ModelConfig, params: Dict, b: int, max_len: int,
                                            device)
             elif spec.kind == "mla":
                 c = mla_mod.init_mla_cache(b, cap, cfg.mla, dtype, device)
+            elif spec.kind == "ssm":
+                c = ssm_mod.init_ssm_cache(cfg, b, dtype, device)
             else:
-                raise NotImplementedError(f"{spec.kind!r} cache {_LATER}")
+                raise ValueError(spec.kind)
             sub.append({k: v[None].repeat((repeats,) + (1,) * v.dim())
                         for k, v in c.items()})
         caches.append(sub)

@@ -170,6 +170,7 @@ FLASH_CASES = [
     (1, 32, 16, 4608, 128, {"window": 4096, "softcap": 50.0,
                             "scale": 144.0 ** -0.5}),
     (2, 32, 32, 1024, 96, {}),                             # phi-3-vision
+    (2, 32, 8, 1024, 128, {}),                             # jamba
 ]
 
 
@@ -219,6 +220,8 @@ DECODE_CASES = [
                                   "scale": 144.0 ** -0.5}, ()),
     (1, 32, 16, 4624, 128, 4620, {"softcap": 50.0,
                                   "scale": 144.0 ** -0.5}, ()),
+    # jamba's attention layer in the 15th step after a 1,024-token prompt
+    (2, 32, 8, 1040, 128, 1039, {}, ()),
 ]
 
 
@@ -699,3 +702,39 @@ def test_moe_dispatch_on_the_card_equals_the_cpu(card, arch, n):
                 torch.tensor(cap)).sum())
     finally:
         torch.use_deterministic_algorithms(False)
+
+
+# ---------------------------------------------------------------------------
+# The SSD mixer (repro_torch.models.ssm): plain torch on every device
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-130m", "jamba-v0.1-52b"])
+def test_ssm_mixer_on_the_card_matches_the_cpu(card, arch):
+    """REDUCED SSM dims in f32: a 3-chunk prefill (output and cache) and
+    4 decode steps (each output, the final cache) on the card against
+    the CPU at rtol = atol = 1e-5; the card's cache written in place."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    cfg = get_config(arch, reduced=True)
+    p = ssm.init_ssm(cfg, torch.Generator().manual_seed(5), torch.float32)
+    x = torch.randn((2, 24 + 4, cfg.d_model),
+                    generator=torch.Generator().manual_seed(6))
+    out = {}
+    for dev in ("cpu", card):
+        pd = {k: ({"scale": v["scale"].to(dev)} if k == "norm"
+                  else v.to(dev)) for k, v in p.items()}
+        xd = x.to(dev)
+        y, cache = ssm.ssm_full(pd, cfg, xd[:, :24], make_cache=True)
+        ptrs = {k: v.data_ptr() for k, v in cache.items()}
+        steps = []
+        for i in range(24, 28):
+            yi, same = ssm.ssm_decode(pd, cfg, xd[:, i:i + 1], cache)
+            assert same is cache
+            steps.append(yi)
+        assert {k: v.data_ptr() for k, v in cache.items()} == ptrs
+        out[str(dev)] = [y, *steps, cache["ssm"], cache["conv"]]
+        assert int(cache["idx"]) == 28
+    for got, want in zip(out[str(card)], out["cpu"], strict=True):
+        assert got.device.type == "cuda"
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)

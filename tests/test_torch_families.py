@@ -2,15 +2,18 @@
 windows, softcaps, post-norms, GeGLU, scaled tied embeddings),
 stablelm-1.6b (layer norm, partial rotary, QKV bias),
 phi-3-vision-4.2b (a patch-embedding prefix) and musicgen-large (frame
-embeddings in, sinusoidal positions, GELU) — against the JAX package at
-REDUCED size in f32: forward, ``train_loss`` and its gradients, the
-chunked path, prefill then decode at every position, and the parameter
-and cache layout (the checks and their tolerances are in
-``torch_family_checks``). Prefill-then-decode skips phi-3-vision, as the
-JAX package's own smoke test does: its prefix mode is served through
-``generate``, which ``test_torch_serve`` holds to the JAX loop. gemma2's
-16-slot local ring wraps in the decode steps. Also the helpers the
-ported modules lacked: ``layers.shape_of`` and
+embeddings in, sinusoidal positions, GELU) — and the SSM family —
+mamba2-130m (pure SSD mixer blocks, no MLP, tied embeddings) and
+jamba-v0.1-52b (SSD and attention layers interleaved, dense and MoE
+MLPs alternating) — against the JAX package at REDUCED size in f32:
+forward, ``train_loss`` and its gradients, the chunked path, prefill
+then decode at every position (the SSM configs from a chunk-aligned
+split), and the parameter and cache layout (the checks and their
+tolerances are in ``torch_family_checks``). Prefill-then-decode skips
+phi-3-vision, as the JAX package's own smoke test does: its prefix mode
+is served through ``generate``, which ``test_torch_serve`` holds to the
+JAX loop. gemma2's 16-slot local ring wraps in the decode steps. Also
+the helpers the ported modules lacked: ``layers.shape_of`` and
 ``tensor_lattice.{version_lamport, packed_size_bytes}``, exactly."""
 
 import dataclasses
@@ -31,33 +34,45 @@ from repro_torch.core import tensor_lattice as tl
 from repro_torch.models import layers
 from torch_family_checks import (check_chunked_forward,
                                  check_forward_and_gradients, check_layout,
-                                 check_prefill_then_decode, np_tree)
+                                 check_prefill_then_decode, np_tree,
+                                 prefill_split)
 
 DENSE = ["gemma2-27b", "stablelm-1.6b", "phi-3-vision-4.2b",
          "musicgen-large"]
-NEW = DENSE + ["mixtral-8x22b", "deepseek-v2-236b"]
+SSM = ["mamba2-130m", "jamba-v0.1-52b"]
+NEW = DENSE + ["mixtral-8x22b", "deepseek-v2-236b"] + SSM
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + SSM)
 def test_forward_loss_and_gradients_match_jax(arch):
     check_forward_and_gradients(arch)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + SSM)
 def test_chunked_forward_matches_jax(arch):
     check_chunked_forward(arch)
 
 
 @pytest.mark.parametrize("impl", ["naive", "chunked"])
 @pytest.mark.parametrize("arch", ["gemma2-27b", "stablelm-1.6b",
-                                  "musicgen-large"])
+                                  "musicgen-large"] + SSM)
 def test_prefill_then_decode_every_position_match_jax(arch, impl):
     check_prefill_then_decode(arch, impl)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + SSM)
 def test_init_model_and_caches_lay_out_like_jax(arch):
     check_layout(arch)
+
+
+def test_ssm_prefill_split_is_chunk_aligned():
+    """The shared check's split: half of the sequence for attention
+    configs, rounded down to the SSD chunk for SSM ones (24 // 2 = 12
+    → 8 at REDUCED's chunk of 8)."""
+    assert prefill_split(get_config("qwen2-1.5b", reduced=True)) == 12
+    for arch in SSM:
+        cfg = get_config(arch, reduced=True)
+        assert cfg.ssm.chunk == 8 and prefill_split(cfg) == 8
 
 
 @pytest.mark.parametrize("arch", NEW)

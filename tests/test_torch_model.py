@@ -5,11 +5,14 @@ and then 8 greedy ``decode_step``s (logits, tokens, cache positions), in
 f32 at rtol = atol = 1e-4, for both attention paths — REDUCED qwen1.5 and
 qwen2, a one-layer config with a sliding window (whose ring is smaller
 than the prompt), a softcap and a query scale, and the REDUCED gemma2,
-stablelm, mixtral (MoE) and deepseek-v2 (MLA + MoE). Plus: the port's
-naive and chunked paths agree, its own ``init_model`` lays parameters
-out leaf for leaf as the JAX package does, and the layers the served
-configs do not reach (layer norm, GeGLU/GELU, partial rotary, scaled
-embeddings, an untied softcapped head, sinusoidal positions) match."""
+stablelm, mixtral (MoE), deepseek-v2 (MLA + MoE), mamba2 (SSM) and
+jamba (SSM + attention + MoE). Plus: the port's naive and chunked paths
+agree, every id's config is the JAX package's, its own ``init_model``
+lays parameters out leaf for leaf as the JAX package does, what the
+port still refuses (MoE's per-shard ``moe_impl="local"``, slice F)
+raises naming its slice, and the layers the served configs do not
+reach (layer norm, GeGLU/GELU, partial rotary, scaled embeddings, an
+untied softcapped head, sinusoidal positions) match."""
 
 import dataclasses
 import functools
@@ -31,8 +34,9 @@ from repro.models.config import LayerSpec as JLayerSpec
 from repro.models.config import ModelConfig as JModelConfig
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.convert import params_from_numpy, tree_to_numpy
-from repro_torch.models import (caches_max_len, decode_step, init_caches,
-                                init_model, layers, prefill, rope)
+from repro_torch.models import (caches_max_len, decode_step, forward,
+                                init_caches, init_model, layers, prefill,
+                                rope)
 from repro_torch.models.config import LayerSpec, ModelConfig
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -61,8 +65,10 @@ CONFIGS = {
     "stablelm-reduced": _reduced("stablelm-1.6b"),
     "mixtral-reduced": _reduced("mixtral-8x22b"),
     "deepseek-v2-reduced": _reduced("deepseek-v2-236b"),
+    "mamba2-reduced": _reduced("mamba2-130m"),
+    "jamba-reduced": _reduced("jamba-v0.1-52b"),
 }
-UNPORTED = ("mamba2-130m", "jamba-v0.1-52b")       # slice E, SSM family
+MOE_IDS = ("mixtral-8x22b", "deepseek-v2-236b", "jamba-v0.1-52b")
 
 
 def _np_tree(tree):
@@ -88,16 +94,18 @@ def _setup(name, impl, seed=0):
 
 
 def _check_caches(got, want):
-    """KV caches ({k, v, pos, idx}) and MLA latent caches ({ckv, krope,
-    pos, idx}): values to TOL, positions and write counters exactly."""
+    """KV caches ({k, v, pos, idx}), MLA latent caches ({ckv, krope,
+    pos, idx}) and SSM caches ({ssm, conv, idx}): values to TOL,
+    positions and write counters exactly."""
     got, want = tree_to_numpy(got), _np_tree(want)
     for g_group, w_group in zip(got, want, strict=True):
         for g, w in zip(g_group, w_group, strict=True):
             assert sorted(g) == sorted(w)
-            for name in sorted(set(g) - {"pos", "idx"}):
+            exact = {"pos", "idx"} & set(g)
+            for name in sorted(set(g) - exact):
                 np.testing.assert_allclose(g[name], w[name], **TOL)
-            np.testing.assert_array_equal(g["pos"], w["pos"])
-            np.testing.assert_array_equal(g["idx"], w["idx"])
+            for name in sorted(exact):
+                np.testing.assert_array_equal(g[name], w[name])
 
 
 @pytest.mark.parametrize("impl", ["naive", "chunked"])
@@ -188,15 +196,19 @@ def test_init_model_is_seeded():
 
 
 def test_unported_archs_name_their_slice():
-    for arch in ARCH_IDS:
-        if arch not in UNPORTED:
-            continue
-        with pytest.raises(NotImplementedError, match="slice E, SSM"):
-            get_config(arch)
+    """Every id is ported; what the port still refuses is MoE's per-shard
+    dispatch (``moe_impl="local"``, the mesh of slice F): ``forward``
+    of each MoE id at REDUCED size raises naming that slice."""
+    for arch in MOE_IDS:
+        cfg = dataclasses.replace(get_config(arch, reduced=True),
+                                  moe_impl="local")
+        params = init_model(cfg, 0, device="cpu")
+        tok = torch.zeros((1, 8), dtype=torch.int32)
+        with pytest.raises(NotImplementedError, match="slice F"):
+            forward(cfg, params, {"tokens": tok})
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS
-                                  if a not in UNPORTED])
+@pytest.mark.parametrize("arch", ARCH_IDS)
 @pytest.mark.parametrize("reduced", [False, True])
 def test_configs_equal_the_jax_packages(arch, reduced):
     got = dataclasses.asdict(get_config(arch, reduced=reduced))

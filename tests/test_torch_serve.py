@@ -1,6 +1,7 @@
 """The port's serving entry point on the CPU: it runs at REDUCED qwen1.5 and
 prints the JAX package's serve.py lines; its prompt is that script's (same
-``--seed``, same token ids); its greedy loop, given the JAX package's
+``--seed``, same token ids; an SSM config's prompt length rounded to
+its chunk as there); its greedy loop, given the JAX package's
 parameters, yields the JAX loop's tokens; teacher forcing with its own
 tokens reproduces a run; ``--replicate`` gossips the batch's session
 table to every status "done"; ``--sessions`` (with ``--session-ttl``)
@@ -83,16 +84,6 @@ def test_replicate_rejects_a_basic_mode_policy(capsys):
     assert e.value.code == 2
 
 
-@pytest.mark.parametrize("argv, slice_", [
-    (["--arch", "mamba2-130m"], "slice E"),
-])
-def test_unported_modes_exit_naming_their_slice(argv, slice_, capsys):
-    with pytest.raises(SystemExit) as e:
-        serve.main(["--device", "cpu", *argv])
-    assert e.value.code == 2
-    assert slice_ in capsys.readouterr().err
-
-
 def test_prompt_is_the_jax_serves():
     cfg = get_config("qwen1.5-0.5b", reduced=True)
     prompt, _ = serve.make_prompt(cfg, 4, 32, seed=5, device="cpu")
@@ -102,18 +93,45 @@ def test_prompt_is_the_jax_serves():
     np.testing.assert_array_equal(prompt["tokens"].numpy(), want)
 
 
+@pytest.mark.parametrize("arch,prompt_len,want", [
+    ("mamba2-130m", 23, 16), ("jamba-v0.1-52b", 5, 8)])
+def test_ssm_prompt_rounds_as_the_jax_serve(arch, prompt_len, want,
+                                            monkeypatch, capsys):
+    """Both serve.py scripts round an SSM config's prompt to its chunk
+    (down, and at least one chunk) and print the rounded length; the
+    port then draws the JAX serve.py's prompt of that length."""
+    argv = ["--arch", arch, "--batch", "2", "--prompt-len",
+            str(prompt_len), "--gen", "3"]
+    cfg = get_config(arch, reduced=True)
+    assert serve.ssm_prompt_len(cfg, prompt_len) == want
+    monkeypatch.setattr(sys, "argv", ["serve.py", *argv])
+    jserve.main()
+    jline = capsys.readouterr().out.splitlines()[0]
+    serve.main(["--device", "cpu", *argv])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == jline == (f"[serve] arch={cfg.name} batch=2 "
+                                 f"prompt={want} gen=3")
+    assert len(ast.literal_eval(lines[2].split(": ", 1)[1])) == 3
+    prompt, _ = serve.make_prompt(cfg, 2, want, seed=0, device="cpu")
+    np.testing.assert_array_equal(
+        prompt["tokens"].numpy(),
+        np.random.default_rng(0).integers(0, cfg.vocab, (2, want)))
+
+
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "qwen2-1.5b",
                                   "gemma2-27b", "stablelm-1.6b",
                                   "phi-3-vision-4.2b", "musicgen-large",
-                                  "mixtral-8x22b", "deepseek-v2-236b"])
+                                  "mixtral-8x22b", "deepseek-v2-236b",
+                                  "mamba2-130m", "jamba-v0.1-52b"])
 def test_generate_yields_the_jax_loops_tokens(arch):
     """The JAX serve.py greedy loop and the port's ``generate`` on the same
     parameters and prompt give the same tokens (musicgen's decode steps
-    draw their frame embeddings from the prompt's generator in both)."""
+    draw their frame embeddings from the prompt's generator in both; the
+    SSM configs' prompts are two of their chunks)."""
     b, gen = 2, 6
     jcfg, cfg = jget_config(arch, reduced=True), get_config(arch,
                                                             reduced=True)
-    prompt_len = cfg.prefix_len + 12
+    prompt_len = cfg.prefix_len + 12 if cfg.ssm is None else 2 * cfg.ssm.chunk
     jparams = jax.jit(lambda k: jinit_model(jcfg, k)[0])(
         jax.random.PRNGKey(0))
     params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),

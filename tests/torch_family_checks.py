@@ -1,6 +1,6 @@
 """Model-level checks of one architecture of the port against the JAX
 package, at REDUCED size in f32, shared by ``test_torch_families.py``
-(the dense configs), ``test_torch_moe.py`` (mixtral) and
+(the dense and SSM configs), ``test_torch_moe.py`` (mixtral) and
 ``test_torch_mla.py`` (deepseek). Each runs on the JAX ``init_model``
 parameters carried over with ``convert.params_from_numpy`` and the JAX
 package's ``smoke_batch`` inputs:
@@ -12,10 +12,12 @@ package's ``smoke_batch`` inputs:
 * :func:`check_chunked_forward` — the chunked attention path's logits and
   aux to the same tolerance;
 * :func:`check_prefill_then_decode` — a prefill of the first half of a
-  24-position sequence, then one decode step at every later position on
-  the sequence's own inputs, logits to rtol = atol = 1e-4 at each step
-  and every cache leaf at the end (float leaves to the same tolerance,
-  positions and write counters exactly);
+  24-position sequence (for an SSM config, that half rounded down to its
+  SSD chunk, whose prefill takes chunk-aligned lengths, as the JAX
+  package's own smoke test splits), then one decode step at every later
+  position on the sequence's own inputs, logits to rtol = atol = 1e-4 at
+  each step and every cache leaf at the end (float leaves to the same
+  tolerance, positions and write counters exactly);
 * :func:`check_layout` — the port's own ``init_model`` lays parameters
   and empty caches out leaf for leaf as the JAX package does.
 
@@ -139,6 +141,13 @@ def check_chunked_forward(arch):
     _check_aux(cfg, aux, jaux)
 
 
+def prefill_split(cfg):
+    split = SEQ // 2
+    if cfg.ssm is not None:
+        split = (split // cfg.ssm.chunk) * cfg.ssm.chunk or cfg.ssm.chunk
+    return split
+
+
 def _prompt(batch, split):
     key = "embeds" if "embeds" in batch else "tokens"
     return {key: batch[key][:, :split]}
@@ -152,7 +161,7 @@ def _step_input(batch, i):
 def check_prefill_then_decode(arch, impl):
     jcfg, cfg, jparams, params = _setup(arch, impl, 3)
     batch = np_tree(smoke_batch(jcfg, b=B, s=SEQ, seed=6, train=False))
-    split = SEQ // 2
+    split = prefill_split(cfg)
     jlogits, jcaches = jax.jit(lambda p, x: jprefill(
         jcfg, p, x, max_len=SEQ))(jparams, _prompt(batch, split))
     with torch.no_grad():
