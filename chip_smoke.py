@@ -149,6 +149,30 @@ NVIDIA card. Run from the root of a checkout:
    prefill and 15 decode steps fed the served tokens against
    ``forward`` over 4,096 + 256 tokens whose first 4,096 + 16 are the
    prompt and the served tokens.
+12. The mesh: a one-rank NCCL group and ``launch.mesh.make_host_mesh``'s
+   1×1 ("data", "model") ``DeviceMesh`` on the card. qwen1.5-0.5b
+   (SERVE[0]: 4 × 1,000 prompt tokens, 32 out, bf16) served through
+   ``generate`` on ``DTensor`` parameters placed by ``param_pspecs`` with
+   the activation hints installed: the flash kernels launch on each
+   rank's shards through ``local_map`` (counted from 0: 24 prefill
+   launches, all on the tensor cores, and 24 × 31 decode), the greedy
+   tokens equal the unsharded run's and every step's logits are within
+   SERVE_LOGIT_TOL of max|logits| (the largest gap printed; bit-equal
+   expected); decode tokens/s on the mesh against the unsharded run, in
+   turns (DTensor's host cost on one card). mixtral-8x22b at full width,
+   2 layers, f32: a prefill with ``moe_impl="local"`` (the per-shard
+   dispatch, all-to-alls over a one-rank group) against the global path
+   without a mesh: expert ids and drops bit-exact, logits within 1e-3,
+   the local path's fallback counter 0. Three ``launch.train`` steps of
+   qwen1.5-0.5b at full width (batch 8 × 128) unsharded, then on the
+   mesh (parameters, optimizer state and batches as ``DTensor``s, the
+   loss on the vocab-parallel path a real mesh runs): the first loss
+   within MESH_TRAIN_RTOL_FIRST of the unsharded run's and the later
+   ones within MESH_TRAIN_RTOL, under deterministic algorithms (the
+   gaps printed). Then ``python -m
+   repro_torch.launch.dryrun --arch qwen2-1.5b --shape train_4k --mesh
+   single --out build/dryrun`` in a subprocess (a fake group of 256
+   ranks on ``meta`` tensors, 300 s limit) and its roofline line.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase
 raises and the script exits non-zero without it, as it does when no card
@@ -240,6 +264,23 @@ FAMILIES_F32 = (   # arch, layers, requests, prompt, out: f32, full width
 # form over a longer sequence, in f32 (F32_RTOL) and bf16
 # (SERVE_LOGIT_TOL): arch, requests, prompt, out
 SSM_GATE = ("mamba2-130m", 2, 4096, 16)
+# phase 12, the mesh: a one-rank NCCL group and its 1×1 ("data", "model")
+# DeviceMesh on the card. Served: SERVE[0] on DTensor parameters; MoE:
+# arch, layers, requests, prompt (f32, moe_impl "local" against "global");
+# train: steps of TRAIN_ARGS' model and batch; the dry-run's CLI cell
+MESH_MOE = ("mixtral-8x22b", 2, 2, 256)
+MESH_MOE_TOL = 1e-3              # rtol = atol, f32
+MESH_TRAIN_STEPS = 3
+# relative gaps of the mesh's train losses from the unsharded run's: the
+# first step's (the same parameters; f32 losses whose two paths sum in
+# other orders), then the later steps' (the two losses' gradients round
+# to bf16 differently, and the parameters part from there)
+MESH_TRAIN_RTOL_FIRST = 1e-6
+MESH_TRAIN_RTOL = 1e-4
+MESH_TURNS = 2                   # timed (plain, mesh, mesh, plain) rounds
+DRYRUN_ARGS = ("--arch", "qwen2-1.5b", "--shape", "train_4k", "--mesh",
+               "single", "--out", "build/dryrun")
+DRYRUN_TIMEOUT = 300
 # dot stores at the sizes of an OR-Set / session-table deployment
 # (benchmarks/bench_dots.py): a 1,062,500-dot causal join over 4
 # replicas, and a reconnect of a 999,000-dot ORMap (2,000 keys of 500
@@ -2502,6 +2543,284 @@ def families_path(dev) -> dict:
     return {"launches": launches, "timings": out}
 
 
+# ---------------------------------------------------------------------------
+# 12. The mesh
+# ---------------------------------------------------------------------------
+
+def _whole(t):
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _mesh_params(cfg, params, mesh, serve):
+    from repro_torch.dist import distribute, make_rules, param_pspecs
+    from repro_torch.models.transformer import logical_specs
+    rules = make_rules(mesh, serve=serve)
+    return distribute(params, param_pspecs(params, logical_specs(cfg),
+                                           rules), mesh), rules
+
+
+def mesh_serve(mesh, dev) -> dict:
+    """SERVE[0] through ``generate`` on ``DTensor`` parameters with the
+    hints installed: the flash launches counted from 0 (every prefill on
+    the tensor cores), the greedy tokens and every step's logits against
+    the unsharded run, then decode rates of both in turns."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import generate, make_prompt
+    from repro_torch.models import init_model
+    from repro_torch.models.hints import activation_rules, default_rules
+
+    arch, b, prompt_len, gen = SERVE[0]
+    cfg = dataclasses.replace(get_config(arch), attn_impl="chunked")
+    params = init_model(cfg, SEED, device=dev)
+    prompt, _ = make_prompt(cfg, b, prompt_len, SEED, dev)
+    generate(cfg, params, prompt, 2)              # warm-up, not counted
+    plain = generate(cfg, params, prompt, gen, keep_logits=True)
+    dparams, rules = _mesh_params(cfg, params, mesh, serve=True)
+
+    def on_mesh():
+        return activation_rules(mesh, default_rules(False, serve=True))
+
+    with on_mesh() as fallbacks:
+        generate(cfg, dparams, prompt, 2)         # warm-up, not counted
+        fa.reset_launches()
+        run = generate(cfg, dparams, prompt, gen, keep_logits=True)
+        got, routes = dict(fa.launches), dict(fa.routes)
+    L = cfg.n_layers
+    want = {"flash_attention": L, "flash_decode": L * (gen - 1)}
+    if got != want or routes != {"flash_attention_tc": L,
+                                 "flash_attention_simt": 0}:
+        raise AssertionError(f"mesh serve {arch}: launches {got} routes "
+                             f"{routes}, expected {want}, all on the "
+                             "tensor cores")
+    if not np.array_equal(run.tokens, plain.tokens):
+        raise AssertionError(f"mesh serve {arch}: greedy tokens differ from "
+                             "the unsharded run")
+    worst, bit_equal = 0.0, True
+    for step, (m_lg, p_lg) in enumerate(zip(run.logits, plain.logits)):
+        gap = float((m_lg - p_lg).abs().max())
+        tol = SERVE_LOGIT_TOL * float(p_lg.abs().max())
+        if not gap <= tol:
+            raise AssertionError(f"mesh serve {arch}: step {step} logits "
+                                 f"differ by {gap} > {tol}")
+        worst = max(worst, gap)
+        bit_equal &= bool(torch.equal(m_lg, p_lg))
+    rates = {"plain": [], "mesh": []}
+    for _ in range(MESH_TURNS):
+        for which in ("plain", "mesh", "mesh", "plain"):
+            if which == "mesh":
+                with on_mesh():
+                    r = generate(cfg, dparams, prompt, gen)
+            else:
+                r = generate(cfg, params, prompt, gen)
+            rates[which].append(b * (gen - 1) / r.decode_s)
+    rec = {"launches": got, "routes": routes, "max_logit_gap": worst,
+           "bit_equal": bit_equal, "fallbacks": list(fallbacks),
+           "sharding_fallbacks": rules.fallbacks,
+           "decode_tok_per_s": {k: float(np.median(v))
+                                for k, v in rates.items()},
+           "decode_tok_per_s_runs": rates}
+    log(f"mesh serve {arch} (1x1 mesh, DTensor params, chunked, card): "
+        f"batch={b} prompt={prompt_len} gen={gen} launches={got} "
+        f"routes={routes}; tokens equal the unsharded run's, max logit gap "
+        f"{worst:.3e} (bit-equal: {bit_equal}); decode tok/s median of "
+        f"{2 * MESH_TURNS} in turns: mesh "
+        f"{rec['decode_tok_per_s']['mesh']:.1f} against unsharded "
+        f"{rec['decode_tok_per_s']['plain']:.1f} (runs {rates}); layout "
+        f"fallbacks {rec['fallbacks']}")
+    return rec
+
+
+def mesh_moe(mesh, dev) -> dict:
+    """MESH_MOE in f32: a prefill with ``moe_impl="local"`` on the mesh
+    against the global path without one; expert ids and drops bit-exact,
+    the logits within MESH_MOE_TOL, the local path's fallbacks 0."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.models import moe, prefill
+    from repro_torch.models.hints import activation_rules, default_rules
+
+    arch, depth, b, prompt_len = MESH_MOE
+    cfg, params, prompt_fn = _family_model(dev, arch, depth, b, prompt_len,
+                                           2, dtype="float32")
+    prompt, _ = prompt_fn()
+    with torch.no_grad(), moe.tap_routing() as tg:
+        want, _ = prefill(cfg, params, prompt, max_len=prompt_len + 2)
+    dparams, _ = _mesh_params(cfg, params, mesh, serve=True)
+    del params
+    gc.collect()
+    before = dict(moe.local_fallbacks)
+    local = dataclasses.replace(cfg, moe_impl="local")
+    with torch.no_grad(), activation_rules(
+            mesh, default_rules(False, serve=True)), \
+            moe.tap_routing() as tl:
+        got, _ = prefill(local, dparams, prompt, max_len=prompt_len + 2)
+    got = _whole(got)
+    fallbacks = {k: moe.local_fallbacks[k] - before[k] for k in before}
+    if len(tl.expert_ids) != len(tg.expert_ids) or not all(
+            torch.equal(a, b) for a, b in zip(tl.expert_ids, tg.expert_ids)):
+        raise AssertionError(f"mesh moe {arch}: expert ids differ")
+    drops = [int(d) for d in tl.drops]
+    if drops != [int(d) for d in tg.drops]:
+        raise AssertionError(f"mesh moe {arch}: drops {drops} differ from "
+                             f"{[int(d) for d in tg.drops]}")
+    if any(fallbacks.values()):
+        raise AssertionError(f"mesh moe {arch}: local path fell back "
+                             f"{fallbacks}")
+    if not bool(torch.isclose(got, want, rtol=MESH_MOE_TOL,
+                              atol=MESH_MOE_TOL).all()):
+        raise AssertionError(f"mesh moe {arch}: logits beyond "
+                             f"rtol=atol={MESH_MOE_TOL}")
+    gap = float((got - want).abs().max())
+    log(f"mesh moe {arch} (f32, {depth} layers, 1x1 mesh, local vs "
+        f"global): {len(tl.expert_ids)} routings bit-exact, drops {drops}, "
+        f"logits max gap {gap:.3e} (rtol=atol={MESH_MOE_TOL}), local-path "
+        f"fallbacks {fallbacks}")
+    del dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"max_gap": gap, "drops": drops, "fallbacks": fallbacks}
+
+
+def mesh_train(mesh, dev) -> dict:
+    """MESH_TRAIN_STEPS steps of ``launch.train``'s sync run (TRAIN_ARGS'
+    model, batch and lr) unsharded, then the same steps on ``DTensor``
+    parameters, optimizer state and batches of the mesh; under
+    ``torch.use_deterministic_algorithms`` the first loss must agree
+    within MESH_TRAIN_RTOL_FIRST and the later ones within
+    MESH_TRAIN_RTOL (the mesh's loss is the vocab-parallel one: its
+    normaliser, mean and their gradients sum in another order than the
+    plain loss's)."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.dist import (batch_pspecs, distribute, make_rules,
+                                  param_pspecs)
+    from repro_torch.launch import train
+    from repro_torch.models.hints import activation_rules, default_rules
+    from repro_torch.models.transformer import logical_specs
+    from repro_torch.optim import (AdamWConfig, init_opt_state,
+                                   opt_state_pspecs)
+    from repro_torch.runtime import TrainConfig, make_train_step
+
+    argv = list(TRAIN_ARGS)
+    argv[argv.index("--steps") + 1] = str(MESH_TRAIN_STEPS)
+    args = train.parse_args(argv)
+    cfg = get_config(args.arch)
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        plain = train.run_sync(args)
+        plain_s = time.perf_counter() - t0
+        plain_losses = plain["losses"]
+        del plain
+        gc.collect()
+        stream = SyntheticLMStream(vocab=cfg.vocab, seq=args.seq,
+                                   batch=args.batch, seed=args.seed)
+        params = train._init(cfg, args.seed, torch.device(dev))
+        rules = make_rules(mesh)
+        pspecs = param_pspecs(params, logical_specs(cfg), rules)
+        dopt = distribute(init_opt_state(params), opt_state_pspecs(pspecs),
+                          mesh)
+        dparams = distribute(params, pspecs, mesh)
+        del params
+        step_fn = make_train_step(cfg, TrainConfig(optimizer=AdamWConfig(
+            lr=args.lr, warmup_steps=max(10, args.steps // 20),
+            total_steps=args.steps)))
+        losses = []
+        t0 = time.perf_counter()
+        with activation_rules(mesh, default_rules(False)):
+            for step in range(args.steps):
+                batch = train._batch(stream, step, dev)
+                dbatch = distribute(batch, batch_pspecs(batch, rules), mesh)
+                dparams, dopt, m = step_fn(dparams, dopt, dbatch)
+                losses.append(float(_whole(m["loss"])))
+        mesh_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, plain_losses)]
+    rtols = [MESH_TRAIN_RTOL_FIRST] + [MESH_TRAIN_RTOL] * (len(gaps) - 1)
+    if len(losses) != len(plain_losses) or any(
+            g > t for g, t in zip(gaps, rtols)):
+        raise AssertionError(f"mesh train: losses {losses} differ from the "
+                             f"unsharded run's {plain_losses} (relative "
+                             f"gaps {gaps}, rtols {rtols})")
+    log(f"mesh train {args.arch} ({args.steps} steps, batch {args.batch} x "
+        f"{args.seq}, 1x1 mesh): losses {losses} against the unsharded "
+        f"launch.train run's {plain_losses} (relative gaps "
+        + ", ".join(f"{g:.3e}" for g in gaps)
+        + f"; rtols {rtols}); {mesh_s:.3f} s on the mesh, {plain_s:.3f} s "
+        f"unsharded (with its set-up)")
+    del dparams, dopt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "plain_losses": plain_losses,
+            "rel_gaps": gaps, "mesh_s": mesh_s, "plain_s": plain_s}
+
+
+def mesh_dryrun() -> dict:
+    """The dry-run CLI's production cell in a subprocess (a fake group of
+    256 ranks on ``meta`` tensors: no card); its roofline line."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                        *DRYRUN_ARGS], cwd=ROOT, env=env,
+                       capture_output=True, text=True,
+                       timeout=DRYRUN_TIMEOUT)
+    wall = time.perf_counter() - t0
+    line = next((x for x in r.stdout.splitlines()
+                 if x.startswith("[ ok ]")), None)
+    if r.returncode != 0 or line is None:
+        raise AssertionError(f"dry-run failed ({r.returncode}): "
+                             f"{r.stdout[-2000:]}{r.stderr[-3000:]}")
+    art = json.loads((ROOT / "build" / "dryrun" /
+                      "qwen2-1.5b_train_4k_16x16.json").read_text())
+    log(f"mesh dry-run ({wall:.1f} s): {line}")
+    return {"wall_s": wall, "line": line, "roofline": art["roofline"],
+            "cost_analysis": art["cost_analysis"],
+            "collective_wire_bytes_per_chip":
+                art["collective_wire_bytes_per_chip"],
+            "layout_fallbacks": art["layout_fallbacks"]}
+
+
+def mesh_path(dev) -> dict:
+    """Phase 12: a one-rank group (NCCL on the card, gloo on the CPU;
+    free-port rendezvous) and ``launch.mesh.make_host_mesh``; serve, MoE
+    and train on it, the group destroyed after; then the dry-run.
+    Returns the serve launches and the records."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t0 = time.perf_counter()
+    if dev == "cuda":
+        log(f"mesh phase on {card_line()}")
+    port = _free_ports(1, socket.SOCK_STREAM)[0]
+    dist.init_process_group("nccl" if dev == "cuda" else "gloo",
+                            init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh(dev)
+        out = {"serve": mesh_serve(mesh, dev), "moe": mesh_moe(mesh, dev),
+               "train": mesh_train(mesh, dev)}
+    finally:
+        dist.destroy_process_group()
+    out["dryrun"] = mesh_dryrun()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"mesh phase: {out['wall_s']:.1f} s"
+        + (f" on {card_line()}" if dev == "cuda" else ""))
+    return {"launches": out["serve"]["launches"], "timings": out}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2571,6 +2890,11 @@ def main() -> int:
     for name, n in families["launches"].items():
         launches[name] += n
     timings["families"] = families["timings"]
+
+    mesh = mesh_path(dev)
+    for name, n in mesh["launches"].items():
+        launches[name] += n
+    timings["mesh"] = mesh["timings"]
     missing = [k for k in TPU_KERNEL if launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on their path: "

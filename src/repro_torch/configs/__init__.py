@@ -39,4 +39,7 @@ def get_config(arch_id: str, reduced: bool = False) -> ModelConfig:
     return mod.REDUCED if reduced else mod.CONFIG
 
 
-__all__ = ["ARCH_IDS", "get_config"]
+from .shapes import SHAPE_CASES, ShapeCase, applicable, input_specs, smoke_batch  # noqa: E402
+
+__all__ = ["ARCH_IDS", "get_config", "SHAPE_CASES", "ShapeCase",
+           "applicable", "input_specs", "smoke_batch"]

@@ -125,11 +125,22 @@ def _no_grad_operands(name: str, *operands) -> None:
                            "grad (training runs the plain attention)")
 
 
+def _local_operands(name: str, *operands) -> None:
+    """The kernels run on one rank's shards: refuse a ``DTensor`` (under a
+    mesh the model calls them inside ``local_map``, on plain tensors)
+    rather than let it reach a plain version."""
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(t, DTensor) for t in operands):
+        raise TypeError(f"{name} got a DTensor: call it on local shards "
+                        "(models.hints.on_shards / local_map)")
+
+
 def flash_attention(q, k, v, *, scale: Optional[float] = None,
                     window: Optional[int] = None,
                     softcap: Optional[float] = None) -> torch.Tensor:
     """Causal flash attention. q [b,h,s,hd]; k,v [b,kv,s,hd] (views with
     any batch/head/seq strides)."""
+    _local_operands("flash_attention", q, k, v)
     _no_grad_operands("flash_attention", q, k, v)
     record_launch("flash_attention", q, k, v)
     return _fa.flash_attention(q, k, v, scale=scale, window=window,
@@ -141,6 +152,7 @@ def flash_decode(q, k, v, q_pos, k_pos, *, scale: Optional[float] = None,
                  softcap: Optional[float] = None) -> torch.Tensor:
     """One-token decode against a (ring) KV cache with slot positions.
     q [b,h,1,hd]; k,v [b,kv,C,hd]; q_pos [b,1], k_pos [b,C] int32."""
+    _local_operands("flash_decode", q, k, v, q_pos, k_pos)
     _no_grad_operands("flash_decode", q, k, v)
     record_launch("flash_decode", q, k, v, q_pos, k_pos)
     return _fa.flash_decode(q, k, v, q_pos, k_pos, scale=scale,

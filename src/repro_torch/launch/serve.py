@@ -110,6 +110,13 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _whole(logits: torch.Tensor) -> torch.Tensor:
+    """Logits as one plain tensor: a ``DTensor``'s (a mesh's step) are
+    gathered, as a sampler reads them."""
+    from torch.distributed.tensor import DTensor
+    return logits.full_tensor() if isinstance(logits, DTensor) else logits
+
+
 def generate(cfg: ModelConfig, params: Dict, prompt: Dict[str, torch.Tensor],
              gen: int, *, rng: Optional[np.random.Generator] = None,
              forced: Optional[torch.Tensor] = None,
@@ -118,7 +125,9 @@ def generate(cfg: ModelConfig, params: Dict, prompt: Dict[str, torch.Tensor],
     tokens per request (the first from the prefill logits). ``forced``
     ([b, gen] tokens) feeds those tokens to the decode steps instead of
     the model's own (teacher forcing: the plain path scored on the
-    served path's tokens). ``keep_logits`` keeps every step's logits."""
+    served path's tokens). ``keep_logits`` keeps every step's logits.
+    On ``DTensor`` parameters (a mesh and its rules installed) the steps
+    run on the mesh, and the logits come back whole."""
     first = next(iter(prompt.values()))
     b, device = first.shape[0], first.device
     prompt_len = sum(v.shape[1] for v in prompt.values())
@@ -126,6 +135,7 @@ def generate(cfg: ModelConfig, params: Dict, prompt: Dict[str, torch.Tensor],
 
     t0 = time.perf_counter()
     logits, caches = prefill(cfg, params, prompt, max_len=max_len)
+    logits = _whole(logits)
     _sync(device)
     prefill_s = time.perf_counter() - t0
 
@@ -145,6 +155,7 @@ def generate(cfg: ModelConfig, params: Dict, prompt: Dict[str, torch.Tensor],
         else:
             step_in = tok
         logits, caches = decode_step(cfg, params, step_in, pos, caches)
+        logits = _whole(logits)
         tok = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
         generated.append(tok)
         if keep_logits:

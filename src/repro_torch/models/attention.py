@@ -18,6 +18,9 @@ own ``[b, s, H, hd]`` / ``[b, C, KV, hd]`` layouts through strides), on the
 CPU their plain tiled build ``_mha_chunked`` (prefill) and ``_mha_core``
 (decode). Tensors on any other device go to the kernel wrappers, which
 refuse them: no path falls back to a plain version while a card runs it.
+Under a mesh the model calls these functions on each rank's local
+shards (``transformer._mix``), so the kernels see plain tensors; a
+``DTensor`` that reaches a wrapper is refused.
 
 Training runs the plain ``_mha_chunked`` / ``_mha_core`` under autograd
 on every device, as the JAX package's train path does (its Pallas
@@ -62,6 +65,14 @@ def init_attention(cfg, gen: torch.Generator, dtype
         for name, width in (("bq", H * hd), ("bk", KV * hd), ("bv", KV * hd)):
             p[name] = torch.zeros((width,), dtype=dtype, device=gen.device)
     return p
+
+
+def attention_specs(cfg) -> Dict[str, tuple]:
+    s = {"wq": ("embed", "heads"), "wk": ("embed", "kv"),
+         "wv": ("embed", "kv"), "wo": ("heads", "embed")}
+    if cfg.qkv_bias:
+        s["bq"], s["bk"], s["bv"] = ("heads",), ("kv",), ("kv",)
+    return s
 
 
 def _project_qkv(p, cfg, x, positions):

@@ -94,8 +94,8 @@ class ModelConfig:
     # plain tiled build (tile-skipped, online softmax)
     attn_impl: str = "naive"
     attn_block: int = 2048
-    # MoE execution path (MoE is not ported yet; kept so configs
-    # construct): "global" single dispatch, "local" per-shard dispatch
+    # MoE execution path: "global" single dispatch, "local" per-shard
+    # dispatch under a mesh (the global one without)
     moe_impl: str = "global"
     # numerics
     dtype: str = "bfloat16"

@@ -57,6 +57,15 @@ def init_mla(cfg, gen: torch.Generator, dtype) -> Dict:
     }
 
 
+def mla_specs(cfg) -> Dict:
+    return {
+        "w_dq": ("embed", "lora"), "w_uq": ("lora", "heads"),
+        "w_dkv": ("embed", "lora"), "w_uk": ("lora", "heads"),
+        "w_uv": ("lora", "heads"), "wo": ("heads", "embed"),
+        "q_norm": {"scale": (None,)}, "kv_norm": {"scale": (None,)},
+    }
+
+
 def _queries(p, cfg, x, positions):
     m = cfg.mla
     b, s, _ = x.shape

@@ -1,15 +1,38 @@
-"""Mixture-of-Experts: sort-based dispatch over the whole token space.
+"""Mixture-of-Experts: sort-based dispatch, two execution paths.
 
-The port of the JAX package's ``models/moe.py`` global path: route each
-token to its top-k experts, lay the (token, k) pairs out in a sorted
+The port of the JAX package's ``models/moe.py``. Each path routes each
+token to its top-k experts, lays the (token, k) pairs out in a sorted
 ``[experts, capacity]`` dispatch table (pairs beyond an expert's
-capacity are dropped, exactly the ones the JAX package drops), run every
-expert's FFN as one batched product, and combine the weighted outputs
+capacity are dropped, exactly the ones the JAX package drops), runs every
+expert's FFN as one batched product, and combines the weighted outputs
 back per token. Shared experts (deepseek) run densely beside them. The
 Switch-style load-balance auxiliary loss is returned with the output.
 
-The JAX package's ``shard_map`` local path (per-shard dispatch with
-all-to-alls) is slice F: ``apply_moe`` refuses ``moe_impl="local"``.
+``global`` (default, mesh-free): one dispatch over the whole token space.
+Under a mesh its data-dependent gathers have no sharded form: it runs on
+every rank over the replicated tokens (recorded as a fallback), as GSPMD
+replicates the flat token tensors for the JAX package.
+
+``local`` (mesh present; without one it is the global path, as in the
+JAX package): per-shard dispatch through ``hints.on_shards``
+(``local_map``, the analogue of ``shard_map``). Tokens never leave their
+shard except through explicit, minimal collectives on the mesh's groups:
+
+* EP regime (num_experts % model-axis == 0): each (data, model) shard
+  dispatches a DISJOINT token slice, routes it to the expert-owning model
+  shards with one tiled all-to-all, computes its own experts at full
+  width, reverses the all-to-all, combines locally, and all-gathers the
+  token outputs over the model axis.
+* TP regime (experts that do not divide the model axis): every expert's
+  FFN is width-sharded over the model axis; dispatch is model-replicated
+  and the combined token output is a partial sum over "model" (one
+  all-reduce when it is read).
+
+FSDP (embed-dim) weight shards are all-gathered when the expert weights
+enter the per-shard region (ZeRO-3), and capacity is per-shard. The
+router is replicated. Where the JAX package falls back to the global path
+(a shard without whole token chunks, an expert width the model axis does
+not divide), so does the port, counted in :data:`local_fallbacks`.
 
 Differences in form, not in result:
 
@@ -32,10 +55,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import hints
+from ..tree import flatten
 from .layers import _gelu, _normal
 
-_LOCAL = ("moe_impl='local' (the shard_map per-shard dispatch) is not "
-          "ported yet (slice F, the mesh)")
+# local-path calls that fell back to the global path, by the reference's
+# two reasons; monotone, read by snapshot-and-diff
+local_fallbacks: Dict[str, int] = {"tokens": 0, "expert_width": 0}
 
 
 @dataclasses.dataclass
@@ -93,6 +119,20 @@ def init_moe(cfg, gen: torch.Generator, dtype) -> Dict:
     return p
 
 
+def moe_specs(cfg) -> Dict:
+    s = {
+        "router": (None, None),            # replicated: d·E is tiny
+        "wi": ("expert", "embed", "mlp"),
+        "wo": ("expert", "mlp", "embed"),
+    }
+    if cfg.act in ("swiglu", "geglu"):
+        s["wg"] = ("expert", "embed", "mlp")
+    if cfg.moe.num_shared_experts:
+        s["shared"] = {"wi": ("embed", "mlp"), "wg": ("embed", "mlp"),
+                       "wo": ("mlp", "embed")}
+    return s
+
+
 def _act(h, g, act: str):
     if act == "swiglu":
         return F.silu(g) * h
@@ -119,32 +159,40 @@ def _route(router, cfg, xf):
         vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
         gate_vals, expert_ids = vals[:, :m.top_k], ids[:, :m.top_k]
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
-    counts = torch.bincount(expert_ids.reshape(-1),
-                            minlength=m.num_experts).to(torch.float32)
+    counts = _expert_counts(expert_ids, m.num_experts).to(torch.float32)
     frac = counts / (N * m.top_k)
     aux = m.num_experts * torch.sum(frac * probs.mean(dim=0))
     return gate_vals, expert_ids, aux
 
 
+def _expert_counts(expert_ids, E: int) -> torch.Tensor:
+    """Pairs routed to each expert (int64 [E]): a scatter-add, which has
+    a deterministic CUDA form and a shape that does not depend on the
+    data (``meta`` tensors take it; ``bincount`` they do not)."""
+    flat = expert_ids.reshape(-1)
+    return torch.zeros(E, dtype=torch.int64, device=flat.device) \
+        .scatter_add_(0, flat, torch.ones_like(flat))
+
+
 def _dispatch_table(expert_ids, E: int, capacity: int):
     """Sorted-scatter table [E, C] int32 of flat (token·K) indices, the
     sentinel M where a slot is empty. Pairs past an expert's capacity are
-    dropped (the JAX package's ``mode="drop"`` writes)."""
+    dropped (the JAX package's ``mode="drop"`` writes): they land in a
+    spare column C that is cut off, so no shape depends on the data."""
     N, K = expert_ids.shape
     M = N * K
     flat_experts = expert_ids.reshape(M)
     sort_idx = torch.argsort(flat_experts, stable=True)
     sorted_experts = flat_experts[sort_idx]
-    counts_i = torch.bincount(flat_experts, minlength=E)
+    counts_i = _expert_counts(flat_experts, E)
     starts = torch.cumsum(counts_i, 0) - counts_i        # exclusive cumsum
     pos_in_expert = (torch.arange(M, device=expert_ids.device)
                      - starts[sorted_experts])
-    keep = pos_in_expert < capacity
-    table = torch.full((E, capacity), M, dtype=torch.int32,
+    slot = torch.clamp(pos_in_expert, max=capacity)
+    table = torch.full((E, capacity + 1), M, dtype=torch.int32,
                        device=expert_ids.device)
-    table[sorted_experts[keep], pos_in_expert[keep]] = \
-        sort_idx[keep].to(torch.int32)
-    return table, M
+    table.index_put_((sorted_experts, slot), sort_idx.to(torch.int32))
+    return table[:, :capacity].contiguous(), M
 
 
 def _gather_tokens(xf, table, K: int):
@@ -164,10 +212,11 @@ def _combine_tokens(y_e, gate_vals, table, N: int, K: int):
     w_e = gates_flat[table.long()].to(y_e.dtype)
     rows = torch.cat([(y_e * w_e[..., None]).reshape(E * C, d),
                       y_e.new_zeros((1, d))])
-    flat = table.reshape(-1).long()
-    real = flat < M
+    # the inverse of the table: each real pair's row (E·C, the zero row,
+    # for a dropped pair); empty slots all write the spare entry M
     inv = torch.full((M + 1,), E * C, dtype=torch.long, device=y_e.device)
-    inv[flat[real]] = torch.arange(E * C, device=y_e.device)[real]
+    inv.index_put_((table.reshape(-1).long(),),
+                   torch.arange(E * C, device=y_e.device))
     out = rows[inv[:M]].reshape(N, K, d)
     return out.to(torch.float32).sum(dim=1).to(y_e.dtype)
 
@@ -219,10 +268,170 @@ def _apply_moe_global(p: Dict, cfg, x: torch.Tensor,
     return y.reshape(b, s, d), aux
 
 
+def _global_on_mesh(p: Dict, cfg, x, capacity: Optional[int]):
+    """The global path under a mesh: on every rank over the replicated
+    tokens and experts (the output replicated too)."""
+    hints.record_fallback("moe global dispatch: tokens and experts "
+                          "replicated over the mesh")
+    leaves, treedef = flatten(p)
+    n = len(leaves)
+
+    def local(x, *leaves):
+        return _apply_moe_global(treedef.unflatten(leaves[:n]), cfg, x,
+                                 capacity)
+
+    return hints.on_shards(local, [x] + leaves,
+                           [(None, None, None)]
+                           + [(None,) * t.dim() for t in leaves],
+                           [(None, None, None), ()])
+
+
+# ---------------------------------------------------------------------------
+# Local path (per-shard dispatch, mesh present)
+# ---------------------------------------------------------------------------
+
+def _fsdp_axes(rules_map, dim: int, sizes: Dict[str, int]
+               ) -> Optional[Tuple[str, ...]]:
+    """Mirror dist/shardings: first FSDP candidate whose size divides dim."""
+    default = [("pod", "data"), ("data",)] if "pod" in sizes \
+        else [("data",)]
+    cands = rules_map.get("fsdp_candidates", default)
+    for c in cands:
+        size = 1
+        for a in c:
+            size *= sizes[a]
+        if dim % size == 0:
+            return c
+    return None
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Tiled all-to-all over ``group``'s G ranks: split dim 0 into G
+    pieces, send piece j to rank j, stack what arrives in rank order on
+    dim 0 (autograd through it)."""
+    from torch.distributed._functional_collectives import (
+        all_to_all_single_autograd)
+    out = all_to_all_single_autograd(x.contiguous(), None, None, group)
+    return out.wait() if hasattr(out, "wait") else out
+
+
+def _apply_moe_local(p: Dict, cfg, x: torch.Tensor, ctx
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    from ..dist.shardings import axis_sizes
+    mesh, rules = ctx
+    m = cfg.moe
+    b, s, d = x.shape
+    sizes = axis_sizes(mesh)
+    dp = rules["tokens"]
+    dp = (dp,) if isinstance(dp, str) else tuple(dp)
+    G = sizes["model"]
+    E, K = m.num_experts, m.top_k
+    ep = (E % G == 0)
+    n_dp = 1
+    for a in dp:
+        n_dp *= sizes[a]
+    b_loc = b // n_dp
+    if b_loc == 0 or b % n_dp or (ep and (b_loc * s) % G != 0):
+        local_fallbacks["tokens"] += 1
+        return _global_on_mesh(p, cfg, x, None)
+    if not ep and m.expert_d_ff % G:
+        local_fallbacks["expert_width"] += 1
+        return _global_on_mesh(p, cfg, x, None)
+    # the layouts mirror dist/shardings' greedy assignment: experts (EP)
+    # or their width (TP) over "model", the embed dim over the FSDP axes
+    fsdp = _fsdp_axes(rules, d, sizes)
+    model = ("model",)
+    w_in = (model, fsdp, None) if ep else (None, fsdp, model)
+    w_out = (model, None, fsdp) if ep else (None, model, fsdp)
+    model_group = mesh.get_group("model")
+    gated = "wg" in p
+
+    def gather_fsdp(w, dim):
+        """ZeRO-3: this layer's expert weights, all-gathered over the
+        FSDP axes (innermost first, as the shards nest)."""
+        import torch.distributed._functional_collectives as funcol
+        gather = getattr(funcol, "all_gather_single_autograd", None) or \
+            funcol.all_gather_tensor_autograd   # the older name
+        for a in reversed(fsdp or ()):
+            w = gather(w, dim, mesh.get_group(a))
+            w = w.wait() if hasattr(w, "wait") else w
+        return w
+
+    def local_fn(xl, router, wi, wo, wg=None):
+        bl, sl, _ = xl.shape
+        xf = xl.reshape(-1, d)                            # [N_loc, d]
+        N_loc = xf.shape[0]
+        pp = {"wi": gather_fsdp(wi, 1), "wo": gather_fsdp(wo, 2)}
+        if wg is not None:
+            pp["wg"] = gather_fsdp(wg, 1)
+        if ep:
+            # each model shard dispatches a disjoint token slice
+            chunk = N_loc // G
+            i = mesh.get_local_rank("model")
+            xme = xf[i * chunk:(i + 1) * chunk]
+            gate_vals, expert_ids, aux = _route(router, cfg, xme)
+            table, M = _dispatch_table(expert_ids, E,
+                                       moe_capacity(cfg, chunk))
+            if _tap is not None:
+                _tap.expert_ids.append(expert_ids)
+                _tap.drops.append(M - (table < M).sum())
+            x_e = _gather_tokens(xme, table, K)           # [E, cap, d]
+            cap = x_e.shape[1]
+            # to the expert owners: [E, cap] → [E/G, G·cap]
+            xa = _all_to_all(x_e, model_group).reshape(G, E // G, cap, d) \
+                .transpose(0, 1).reshape(E // G, G * cap, d)
+            y_own = _expert_ffn(pp, cfg, xa)              # [E/G, G·cap, d]
+            y_e = _all_to_all(y_own.reshape(E // G, G, cap, d)
+                              .transpose(0, 1).reshape(E, cap, d),
+                              model_group)                # [E, cap, d]
+            # this rank's token slice: the flat tokens sharded over the
+            # data axes, then over "model" (all-gathered below)
+            return (_combine_tokens(y_e, gate_vals, table, chunk, K),
+                    aux / (n_dp * G))
+        # TP experts: model-replicated dispatch, width-sharded FFN, a
+        # partial sum over "model"
+        gate_vals, expert_ids, aux = _route(router, cfg, xf)
+        table, M = _dispatch_table(expert_ids, E, moe_capacity(cfg, N_loc))
+        if _tap is not None:
+            _tap.expert_ids.append(expert_ids)
+            _tap.drops.append(M - (table < M).sum())
+        x_e = _gather_tokens(xf, table, K)
+        y_e = _expert_ffn(pp, cfg, x_e)                   # partial over f
+        y = _combine_tokens(y_e, gate_vals, table, N_loc, K)
+        # every model rank routes the same tokens: each returns a G-th
+        # of the aux (its input gradients are partial sums over "model")
+        return y.reshape(bl, sl, d), aux / (n_dp * G)
+
+    args = [x, p["router"], p["wi"], p["wo"]] + ([p["wg"]] if gated else [])
+    axes = [(dp, None, None), (None, None), w_in, w_out] + \
+        ([w_in] if gated else [])
+    if ep:
+        y, aux = hints.on_shards(
+            local_fn, args, axes,
+            [(dp + model, None), hints.Summed((), over=(dp, model))])
+        # the all-gather of the token outputs over "model"
+        y = y.redistribute(mesh, hints.layout((dp, None), mesh, rules)) \
+            .reshape(b, s, d)
+    else:
+        y, aux = hints.on_shards(
+            local_fn, args, axes,
+            [hints.Summed((dp, None, None), over=(model,)),
+             hints.Summed((), over=(dp, model))])
+    if m.num_shared_experts:
+        xf = x.reshape(b * s, d)
+        y = y + _shared_experts(p, cfg, xf).reshape(b, s, d)
+    return y, aux
+
+
 def apply_moe(p: Dict, cfg, x: torch.Tensor,
               capacity: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x [b, s, d] → (y [b, s, d], aux_loss scalar f32)."""
+    """x [b, s, d] → (y [b, s, d], aux_loss scalar f32). ``moe_impl``
+    "local" takes the per-shard path when a mesh is installed and the
+    global one without."""
+    ctx = hints.current_rules()
+    if ctx is None:
+        return _apply_moe_global(p, cfg, x, capacity)
     if getattr(cfg, "moe_impl", "global") == "local":
-        raise NotImplementedError(_LOCAL)
-    return _apply_moe_global(p, cfg, x, capacity)
+        return _apply_moe_local(p, cfg, x, ctx)
+    return _global_on_mesh(p, cfg, x, capacity)

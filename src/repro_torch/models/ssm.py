@@ -65,6 +65,16 @@ def init_ssm(cfg, gen: torch.Generator, dtype) -> Dict:
     }
 
 
+def ssm_specs(cfg) -> Dict:
+    return {
+        "w_z": ("embed", "mlp"), "w_xbc": ("embed", "mlp"),
+        "w_dt": ("embed", None), "conv_w": (None, "mlp"),
+        "conv_b": ("mlp",), "A_log": (None,), "D": (None,),
+        "dt_bias": (None,), "norm": {"scale": ("mlp",)},
+        "w_out": ("mlp", "embed"),
+    }
+
+
 def _split_proj(p, cfg, x):
     return (torch.matmul(x, p["w_z"]), torch.matmul(x, p["w_xbc"]),
             torch.matmul(x, p["w_dt"]))

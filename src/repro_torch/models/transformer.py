@@ -13,7 +13,12 @@
   training, where the JAX package has ``jax.checkpoint``;
 * entry points: ``forward`` / ``train_loss`` (full sequence),
   ``prefill`` (prompt → last-position logits and caches) and
-  ``decode_step`` (one token against the caches).
+  ``decode_step`` (one token against the caches);
+* on a mesh (``DTensor`` parameters placed by ``dist.shardings`` from
+  :func:`logical_specs`, rules installed by ``hints.activation_rules``)
+  the same entry points run sharded: activations pinned by the
+  reference's hints (and one after the mixer's residual), each mixer on
+  its rank's shards (:func:`_mix`).
 
 ``input_mode`` selects token embedding, raw embeddings (musicgen frames),
 or token+prefix embeddings (phi-3-vision patches), as in the JAX package.
@@ -21,20 +26,23 @@ or token+prefix embeddings (phi-3-vision patches), as in the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..tree import tree_map
+from ..tree import flatten, tree_map
 from . import attention as attn_mod
+from . import hints
 from . import mla as mla_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .config import LayerSpec, ModelConfig, layout_groups
+from .hints import even, hint, on_shards
 from .layers import (apply_mlp, apply_norm, cross_entropy, embed_tokens,
-                     init_embedding, init_mlp, init_norm, lm_logits,
-                     sinusoidal_positions)
+                     embedding_specs, init_embedding, init_mlp, init_norm,
+                     lm_logits, mlp_specs, norm_specs, sinusoidal_positions)
 
 AUX_LOSS_WEIGHT = 0.01
 
@@ -97,15 +105,24 @@ def _unstack(tree: Any, repeats: int) -> List[Any]:
     return list(torch.unbind(tree, 0))
 
 
+class _Shapes:
+    """Stands in for the generator on ``meta``: ``_normal`` then draws
+    nothing and gives the shape alone."""
+
+    device = torch.device("meta")
+
+
 def init_model(cfg: ModelConfig, seed: int = 0, *, device="cuda"
                ) -> Dict[str, Any]:
     """Random parameters from ``seed`` (an explicit ``torch.Generator`` on
     ``device``), laid out as the JAX package's ``init_model``: ``embed``,
     ``final_norm`` and ``groups``, a list (one per layout group) of lists
     (one per layer of the group's super-block) of parameter dicts stacked
-    over the group's repeats."""
+    over the group's repeats. On ``device="meta"`` the same tree of
+    shapes and dtypes, with no data and no generator (the dry-run's)."""
     dtype = compute_dtype(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = (_Shapes() if torch.device(device).type == "meta"
+           else torch.Generator(device=device).manual_seed(seed))
     params: Dict[str, Any] = {
         "embed": init_embedding(cfg, gen, dtype),
         "final_norm": init_norm(cfg, cfg.d_model, gen.device),
@@ -125,19 +142,112 @@ def init_model(cfg: ModelConfig, seed: int = 0, *, device="cuda"
     return params
 
 
+def _layer_specs(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Any]:
+    s: Dict[str, Any] = {"norm1": norm_specs(cfg)}
+    if spec.kind == "attn":
+        s["mix"] = attn_mod.attention_specs(cfg)
+    elif spec.kind == "mla":
+        s["mix"] = mla_mod.mla_specs(cfg)
+    elif spec.kind == "ssm":
+        s["mix"] = ssm_mod.ssm_specs(cfg)
+    else:
+        raise ValueError(spec.kind)
+    if spec.mlp in ("dense", "moe"):
+        s["norm2"] = norm_specs(cfg)
+        s["mlp"] = (mlp_specs(cfg) if spec.mlp == "dense"
+                    else moe_mod.moe_specs(cfg))
+    elif spec.mlp != "none":
+        raise ValueError(spec.mlp)
+    if cfg.post_norms:
+        s["post_attn"] = norm_specs(cfg)
+        s["post_mlp"] = norm_specs(cfg)
+    return s
+
+
+def logical_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """The tree of logical axis names of ``init_model(cfg)``'s
+    parameters, leaf for leaf (a tuple of names, ``None`` for a dim no
+    rule shards): the second result of the JAX package's ``init_model``,
+    from the config alone. Stacked layers carry a leading ``"layers"``."""
+    def stacked(tree):
+        if isinstance(tree, dict):
+            return {k: stacked(v) for k, v in tree.items()}
+        return ("layers",) + tuple(tree)
+
+    return {
+        "embed": embedding_specs(cfg),
+        "final_norm": norm_specs(cfg),
+        "groups": [[stacked(_layer_specs(cfg, spec)) for spec in block]
+                   for block, _ in layout_groups(cfg.default_layout())],
+    }
+
+
 # ---------------------------------------------------------------------------
 # Block application
 # ---------------------------------------------------------------------------
 
-def _apply_block(cfg: ModelConfig, spec: LayerSpec, p: Dict,
-                 x: torch.Tensor, positions: torch.Tensor, mode: str,
-                 cache: Optional[Dict], cache_capacity: Optional[int]
-                 ) -> Tuple[torch.Tensor, Optional[Dict],
-                            Optional[torch.Tensor]]:
-    """One decoder block. Returns (x, new_cache, aux_loss), the aux loss
-    None for a block without MoE."""
-    aux = None
-    h = apply_norm(p["norm1"], x, cfg.norm)
+# the keys of each mixer's cache, in the sorted order they cross a
+# ``local_map`` boundary
+_CACHE_KEYS = {"attn": ("idx", "k", "pos", "v"),
+               "mla": ("ckv", "idx", "krope", "pos"),
+               "ssm": ("conv", "idx", "ssm")}
+
+
+def _cache_axes(key: str, batch: Optional[str], heads: Optional[str]
+                ) -> Tuple[Optional[str], ...]:
+    """Logical layout of one cache tensor of a layer: the batch, and the
+    KV heads of an attention ring ``[b, C, KV, hd]``."""
+    if key == "idx":
+        return ()
+    if key in ("k", "v"):
+        return (batch, None, heads, None)
+    return (batch,) + (None,) * {"pos": 1, "ckv": 2, "krope": 2,
+                                 "conv": 2, "ssm": 3}[key]
+
+
+def _mixer_layout(cfg: ModelConfig, spec: LayerSpec, b: int):
+    """(batch axis, heads axis, the config the shards see) of a mixer
+    under the installed mesh: the batch over the data axes, attention and
+    MLA heads over "model" with the config's head counts cut to one
+    rank's; where a count does not divide, that dim replicates
+    (recorded). The SSD mixer's fused [x | B | C] projection has no even
+    split by heads: it runs replicated over "model" (recorded)."""
+    batch = even("batch", b, what=f"{spec.kind} mixer batch")
+    if spec.kind == "ssm":
+        if hints.axis_size("heads") > 1:
+            hints.record_fallback("ssm mixer: replicated over the heads "
+                                  "axis")
+        return batch, None, cfg
+    kv = cfg.n_kv_heads if spec.kind == "attn" else cfg.n_heads
+    heads = even("heads", cfg.n_heads, kv, what=f"{spec.kind} heads")
+    if heads is None:
+        return batch, None, cfg
+    n = hints.axis_size("heads")
+    local = {"n_heads": cfg.n_heads // n}
+    if spec.kind == "attn":
+        local.update(n_kv_heads=cfg.n_kv_heads // n,
+                     head_dim=cfg.resolved_head_dim())
+    return batch, heads, dataclasses.replace(cfg, **local)
+
+
+def cache_axes(cfg: ModelConfig, b: int) -> List:
+    """The logical layout of ``init_caches(cfg, ..., b, ...)``'s tensors
+    under the installed mesh, leaf for leaf (a leading ``None`` for the
+    stacked layers): what the mixers' shards read and write in place."""
+    out = []
+    for block, _ in layout_groups(cfg.default_layout()):
+        sub = []
+        for spec in block:
+            batch, heads, _ = _mixer_layout(cfg, spec, b)
+            sub.append({k: (None,) + _cache_axes(k, batch, heads)
+                        for k in _CACHE_KEYS[spec.kind]})
+        out.append(sub)
+    return out
+
+
+def _run_mixer(cfg: ModelConfig, spec: LayerSpec, p: Dict, h, positions,
+               mode: str, cache: Optional[Dict],
+               cache_capacity: Optional[int]):
     if spec.kind == "ssm":
         if mode == "decode":
             y, new_cache = ssm_mod.ssm_decode(p["mix"], cfg, h, cache)
@@ -158,9 +268,70 @@ def _apply_block(cfg: ModelConfig, spec: LayerSpec, p: Dict,
         else:
             y, new_cache = full(p["mix"], cfg, spec, h, positions,
                                 make_cache=cache_capacity)
+    return y, new_cache
+
+
+def _mix(cfg: ModelConfig, spec: LayerSpec, p: Dict, h, positions,
+         mode: str, cache: Optional[Dict], cache_capacity: Optional[int]):
+    """The block's mixer (attention, MLA or SSD): ``_run_mixer``, and
+    under a mesh the same code on each rank's shards
+    (``hints.on_shards``, laid out by :func:`_mixer_layout`), so that the
+    flash kernels and the in-place ring writes see plain tensors. Heads
+    over "model" leave each rank a partial sum of the output projection.
+    """
+    if hints.current_rules() is None:
+        return _run_mixer(cfg, spec, p, h, positions, mode, cache,
+                          cache_capacity)
+    batch, heads, lcfg = _mixer_layout(cfg, spec, h.shape[0])
+    names = {"attn": attn_mod.attention_specs, "mla": mla_mod.mla_specs,
+             "ssm": ssm_mod.ssm_specs}[spec.kind](cfg)
+    p_leaves, p_def = flatten(p["mix"])
+    p_axes = [tuple(heads if n in ("heads", "kv") else None for n in ax)
+              for ax in p_def.flatten_up_to(names)]
+    keys = _CACHE_KEYS[spec.kind]
+    c_leaves = [cache[k] for k in keys] if mode == "decode" else []
+    c_axes = [_cache_axes(k, batch, heads) for k in keys]
+    y_axes = (hints.Summed((batch, None, None)) if heads is not None
+              else (batch, None, None))
+
+    def local(h, positions, *leaves):
+        pl = {"mix": p_def.unflatten(leaves[:len(p_leaves)])}
+        cl = (dict(zip(keys, leaves[len(p_leaves):])) if mode == "decode"
+              else None)
+        y, nc = _run_mixer(lcfg, spec, pl, h, positions, mode, cl,
+                           cache_capacity)
+        return (y,) + (tuple(nc[k] for k in keys)
+                       if mode == "prefill" else ())
+
+    out = on_shards(local, [h, positions] + p_leaves + c_leaves,
+                    [(batch, None, None), (batch, None)] + p_axes + c_axes,
+                    [y_axes] + (c_axes if mode == "prefill" else []),
+                    inplace=range(2 + len(p_leaves),
+                                  2 + len(p_leaves) + len(c_leaves)))
+    if mode == "prefill":
+        return out[0], dict(zip(keys, out[1:]))
+    return out[0], cache
+
+
+def _apply_block(cfg: ModelConfig, spec: LayerSpec, p: Dict,
+                 x: torch.Tensor, positions: torch.Tensor, mode: str,
+                 cache: Optional[Dict], cache_capacity: Optional[int]
+                 ) -> Tuple[torch.Tensor, Optional[Dict],
+                            Optional[torch.Tensor]]:
+    """One decoder block. Returns (x, new_cache, aux_loss), the aux loss
+    None for a block without MoE."""
+    aux = None
+    x = hint(x, ("batch", None, None))
+    h = apply_norm(p["norm1"], x, cfg.norm)
+    y, new_cache = _mix(cfg, spec, p, h, positions, mode, cache,
+                        cache_capacity)
     if cfg.post_norms:
         y = apply_norm(p["post_attn"], y, cfg.norm)
-    x = x + y
+    # under a mesh the mixer's output is a partial sum over the heads
+    # axis: reduce it here, so that the MLP reads the batch-sharded
+    # activations (else its products gather the activations, not the
+    # weights); a no-op without a mesh
+    x = hint(x + y, ("batch", None, None))
 
     if spec.mlp == "none":
         return x, new_cache, aux
@@ -210,14 +381,20 @@ def _run_stack(cfg: ModelConfig, params: Dict, x: torch.Tensor,
             per_layer = [_unstack(stacked[li], repeats)
                          for li in range(len(block))]
 
+            rules = hints.current_rules()
+
             def body(x, layer_params, block=block):
-                aux_l = torch.zeros((), dtype=torch.float32,
-                                    device=x.device)
-                for li, spec in enumerate(block):
-                    x, _, aux = _apply_block(cfg, spec, layer_params[li], x,
-                                             positions, mode, None, None)
-                    if aux is not None:
-                        aux_l = aux_l + aux
+                # the recompute runs on autograd's device thread, which
+                # does not see this thread's mesh rules: put them back
+                with hints.reinstalled(rules):
+                    aux_l = torch.zeros((), dtype=torch.float32,
+                                        device=x.device)
+                    for li, spec in enumerate(block):
+                        x, _, aux = _apply_block(cfg, spec, layer_params[li],
+                                                 x, positions, mode, None,
+                                                 None)
+                        if aux is not None:
+                            aux_l = aux_l + aux
                 return x, aux_l
 
             aux_stack = []
@@ -257,6 +434,7 @@ def _arange_positions(b: int, s: int, device) -> torch.Tensor:
 def _inputs_to_hidden(cfg: ModelConfig, params: Dict, batch: Dict
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     dtype = compute_dtype(cfg)
+    batch = {k: hints.on_mesh(v) for k, v in batch.items()}
     if cfg.input_mode == "embeds":
         x = batch["embeds"].to(dtype)
         b, s = x.shape[0], x.shape[1]
@@ -275,8 +453,10 @@ def _inputs_to_hidden(cfg: ModelConfig, params: Dict, batch: Dict
         positions = batch.get("positions")
         if positions is None:
             positions = _arange_positions(b, s, x.device)
+    positions = hints.on_mesh(positions)
     if cfg.pos == "sinusoidal":
         x = x + sinusoidal_positions(positions, cfg.d_model, x.dtype)
+    x = hint(x, ("batch", None, None))
     return x, positions
 
 

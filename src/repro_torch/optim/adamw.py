@@ -8,8 +8,9 @@
   tensor on its device, in f32 as the JAX package computes it.
 
 The update is functional: it returns new tensors and leaves its inputs
-intact. The JAX package's ``opt_state_pspecs`` (ZeRO sharding specs)
-comes with the sharding slice.
+intact; on ``DTensor`` parameters the state and the update keep the
+parameters' placements (``opt_state_pspecs``: ZeRO, the state shards
+like the parameters).
 """
 
 from __future__ import annotations
@@ -49,8 +50,8 @@ def lr_at_step(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 def init_opt_state(params: Any) -> Dict[str, Any]:
     leaves = tu.leaves(params)
     device = leaves[0].device if leaves else "cpu"
-    zeros = lambda x: torch.zeros(x.shape, dtype=torch.float32,
-                                  device=x.device)
+    # zeros laid out like each parameter (a DTensor's placements too)
+    zeros = lambda x: torch.zeros_like(x, dtype=torch.float32)
     return {
         "m": tu.tree_map(zeros, params),
         "v": tu.tree_map(zeros, params),
@@ -58,6 +59,24 @@ def init_opt_state(params: Any) -> Dict[str, Any]:
             lambda x: x.detach().to(torch.float32, copy=True), params),
         "step": torch.zeros((), dtype=torch.int32, device=device),
     }
+
+
+def opt_state_pspecs(param_pspecs: Any) -> Dict[str, Any]:
+    """Optimizer state shards exactly like the parameters (ZeRO); the
+    step replicates."""
+    from ..dist.shardings import P
+    return {"m": param_pspecs, "v": param_pspecs, "master": param_pspecs,
+            "step": P()}
+
+
+def _laid_out_as(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor`` gradient in its parameter's placements (the ZeRO
+    reduce-scatter of a partial sum), so that the state and the update
+    keep the parameter's layout; a plain gradient as it is."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def _global_norm(tree: Any) -> torch.Tensor:
@@ -69,6 +88,7 @@ def _global_norm(tree: Any) -> torch.Tensor:
 def adamw_update(params: Any, grads: Any, state: Dict[str, Any],
                  cfg: AdamWConfig
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
+    grads = tu.tree_map(_laid_out_as, grads, params)
     step = state["step"] + 1
     gnorm = _global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)

@@ -31,6 +31,26 @@ class TrainConfig:
     remat: bool = True
 
 
+def _split_micro(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x``'s batch as [n, b/n, ...] microbatches: microbatch i is the
+    i-th slice of b/n rows, as the JAX package's reshape makes it. A
+    ``DTensor`` whose batch is sharded is gathered first (the batch
+    inputs are small) and each microbatch's rows sharded as the batch
+    was."""
+    b = x.shape[0]
+    if b % n:
+        raise ValueError(f"batch {b} does not split into {n} microbatches")
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor) or not any(
+            p == Shard(0) for p in x.placements):
+        return x.reshape((n, b // n) + tuple(x.shape[1:]))
+    mesh = x.device_mesh
+    whole = x.redistribute(mesh, [Replicate()] * mesh.ndim)
+    micro = whole.reshape((n, b // n) + tuple(x.shape[1:]))
+    return micro.redistribute(mesh, [Shard(p.dim + 1) if isinstance(
+        p, Shard) else p for p in x.placements])
+
+
 def make_train_step(cfg, tcfg: TrainConfig = TrainConfig()) -> Callable:
     """(params, opt_state, batch) → (params, opt_state, metrics)."""
 
@@ -48,18 +68,10 @@ def make_train_step(cfg, tcfg: TrainConfig = TrainConfig()) -> Callable:
             loss, grads = value_and_grad(params, batch)
         else:
             n = tcfg.microbatches
-
-            def split(x):
-                b = x.shape[0]
-                assert b % n == 0
-                return x.reshape((n, b // n) + tuple(x.shape[1:]))
-
-            micro = {k: split(v) for k, v in batch.items()}
-            loss = torch.zeros((), dtype=torch.float32,
-                               device=tu.leaves(params)[0].device)
+            micro = {k: _split_micro(v, n) for k, v in batch.items()}
+            loss = 0.0
             grads = tu.tree_map(
-                lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device), params)
+                lambda p: torch.zeros_like(p, dtype=torch.float32), params)
             for i in range(n):
                 mb = {k: v[i] for k, v in micro.items()}
                 l_i, g_i = value_and_grad(params, mb)

@@ -738,3 +738,131 @@ def test_ssm_mixer_on_the_card_matches_the_cpu(card, arch):
     for got, want in zip(out[str(card)], out["cpu"], strict=True):
         assert got.device.type == "cuda"
         torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The mesh on one card: a one-rank NCCL group, the 1×1 mesh
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def mesh11(card, tmp_path):
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        yield make_host_mesh("cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_wrappers_on_local_shards_equal_plain_tensors(mesh11, dtype):
+    """On the 1×1 mesh the wrappers, called through ``local_map`` on
+    ``DTensor``s (heads over "model", batch over "data"), return the
+    kernels' result on the plain tensors bit for bit, prefill and decode;
+    a ``DTensor`` handed to a wrapper directly is refused."""
+    from repro_torch.dist import P, distribute
+    from repro_torch.models.hints import activation_rules, default_rules
+    from repro_torch.models.hints import on_shards
+    g = torch.Generator(device="cuda").manual_seed(7)
+    b, h, kv, s, hd, C = 2, 8, 2, 300, 128, 512
+    q, k, v = (torch.randn((b, n, t, hd), generator=g, device="cuda")
+               .to(dtype) for n, t in ((h, s), (kv, s), (kv, s)))
+    qd = torch.randn((b, h, 1, hd), generator=g, device="cuda").to(dtype)
+    kc, vc = (torch.randn((b, kv, C, hd), generator=g, device="cuda")
+              .to(dtype) for _ in range(2))
+    q_pos = torch.full((b, 1), C - 5, dtype=torch.int32, device="cuda")
+    k_pos = torch.arange(C, dtype=torch.int32, device="cuda")[None] \
+        .repeat(b, 1)
+    k_pos[:, -3:] = -1
+    want_p = ops.flash_attention(q, k, v, window=128)
+    want_d = ops.flash_decode(qd, kc, vc, q_pos, k_pos)
+    heads = ("batch", "heads", None, None)
+    t = distribute({"q": q, "k": k, "v": v, "qd": qd, "kc": kc, "vc": vc,
+                    "qp": q_pos, "kp": k_pos},
+                   {n: P("data", "model") for n in ("q", "k", "v", "qd",
+                                                    "kc", "vc")}
+                   | {"qp": P("data"), "kp": P("data")}, mesh11)
+    with pytest.raises(TypeError, match="DTensor"):
+        ops.flash_attention(t["q"], t["k"], t["v"])
+    before = dict(fa.launches)
+    with activation_rules(mesh11, default_rules(False)):
+        (got_p,) = on_shards(
+            lambda q, k, v: (ops.flash_attention(q, k, v, window=128),),
+            [t["q"], t["k"], t["v"]], [heads] * 3, [heads])
+        (got_d,) = on_shards(
+            lambda q, k, v, qp, kp: (ops.flash_decode(q, k, v, qp, kp),),
+            [t["qd"], t["kc"], t["vc"], t["qp"], t["kp"]],
+            [heads] * 3 + [("batch", None)] * 2, [heads])
+    assert fa.launches["flash_attention"] - before["flash_attention"] == 1
+    assert fa.launches["flash_decode"] - before["flash_decode"] == 1
+    assert torch.equal(_bits(got_p.to_local()), _bits(want_p))
+    assert torch.equal(_bits(got_d.to_local()), _bits(want_d))
+
+
+@pytest.mark.cuda
+def test_served_model_on_the_mesh_equals_the_plain_run(mesh11):
+    """A small bf16 model (head_dim 128: the tensor-core prefill) served
+    through ``generate`` on ``DTensor`` parameters of the 1×1 mesh: the
+    same tokens and bit-equal logits as without the mesh, every flash
+    launch made on the mesh's local shards."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.dist import distribute, make_rules, param_pspecs
+    from repro_torch.launch.serve import generate, make_prompt
+    from repro_torch.models import init_model
+    from repro_torch.models.hints import activation_rules, default_rules
+    from repro_torch.models.transformer import logical_specs
+    cfg = dataclasses.replace(
+        get_config("qwen1.5-0.5b", reduced=True), d_model=256, n_heads=2,
+        n_kv_heads=2, head_dim=128, dtype="bfloat16", attn_impl="chunked")
+    params = init_model(cfg, 3, device="cuda")
+    prompt, _ = make_prompt(cfg, 2, 40, 3, "cuda")
+    want = generate(cfg, params, prompt, 6, keep_logits=True)
+    dparams = distribute(params, param_pspecs(params, logical_specs(cfg),
+                                              make_rules(mesh11)), mesh11)
+    fa.reset_launches()
+    with activation_rules(mesh11, default_rules(False)):
+        got = generate(cfg, dparams, prompt, 6, keep_logits=True)
+    L = cfg.n_layers
+    assert fa.launches == {"flash_attention": L, "flash_decode": 5 * L}
+    assert np.array_equal(got.tokens, want.tokens)
+    for a, b in zip(got.logits, want.logits, strict=True):
+        a = a.full_tensor() if hasattr(a, "full_tensor") else a
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v2-236b"])
+def test_local_moe_on_the_1x1_mesh_equals_the_global_path(mesh11, arch):
+    """``moe_impl="local"`` on the card's 1×1 mesh (expert-parallel: the
+    all-to-alls over a one-rank group) against the global path without a
+    mesh, REDUCED in f32: the same expert ids and drops, the output to
+    1e-5, no fallback."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.dist import P, distribute, make_rules, param_pspecs
+    from repro_torch.models import moe
+    from repro_torch.models.hints import activation_rules, default_rules
+    cfg = get_config(arch, reduced=True)
+    p = moe.init_moe(cfg, torch.Generator(device="cuda").manual_seed(1),
+                     torch.float32)
+    x = torch.randn((4, 16, cfg.d_model), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(2))
+    with moe.tap_routing() as tg:
+        y_g, _ = moe.apply_moe(p, cfg, x)
+    dp = distribute(p, param_pspecs(p, moe.moe_specs(cfg),
+                                    make_rules(mesh11)), mesh11)
+    xd = distribute({"x": x}, {"x": P("data")}, mesh11)["x"]
+    before = dict(moe.local_fallbacks)
+    with activation_rules(mesh11, default_rules(False)), \
+            moe.tap_routing() as tl:
+        y_l, _ = moe.apply_moe(dp, dataclasses.replace(cfg, moe_impl="local"),
+                               xd)
+    assert moe.local_fallbacks == before
+    assert torch.equal(tl.expert_ids[0], tg.expert_ids[0])
+    assert int(tl.drops[0]) == int(tg.drops[0])
+    torch.testing.assert_close(y_l.full_tensor(), y_g, rtol=1e-5,
+                               atol=1e-5)

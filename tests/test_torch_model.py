@@ -8,9 +8,9 @@ than the prompt), a softcap and a query scale, and the REDUCED gemma2,
 stablelm, mixtral (MoE), deepseek-v2 (MLA + MoE), mamba2 (SSM) and
 jamba (SSM + attention + MoE). Plus: the port's naive and chunked paths
 agree, every id's config is the JAX package's, its own ``init_model``
-lays parameters out leaf for leaf as the JAX package does, what the
-port still refuses (MoE's per-shard ``moe_impl="local"``, slice F)
-raises naming its slice, and the layers the served configs do not
+lays parameters out leaf for leaf as the JAX package does, MoE's
+``moe_impl="local"`` without a mesh is the global path (as in the JAX
+package), and the layers the served configs do not
 reach (layer norm, GeGLU/GELU, partial rotary, scaled embeddings, an
 untied softcapped head, sinusoidal positions) match."""
 
@@ -195,17 +195,29 @@ def test_init_model_is_seeded():
     assert not np.array_equal(la[0], lc[0])
 
 
-def test_unported_archs_name_their_slice():
-    """Every id is ported; what the port still refuses is MoE's per-shard
-    dispatch (``moe_impl="local"``, the mesh of slice F): ``forward``
-    of each MoE id at REDUCED size raises naming that slice."""
-    for arch in MOE_IDS:
-        cfg = dataclasses.replace(get_config(arch, reduced=True),
-                                  moe_impl="local")
-        params = init_model(cfg, 0, device="cpu")
-        tok = torch.zeros((1, 8), dtype=torch.int32)
-        with pytest.raises(NotImplementedError, match="slice F"):
-            forward(cfg, params, {"tokens": tok})
+@pytest.mark.parametrize("arch", MOE_IDS)
+def test_local_moe_without_a_mesh_is_the_global_path(arch):
+    """``moe_impl="local"`` with no mesh installed runs the global
+    dispatch, as the JAX package's ``apply_moe`` does: ``forward`` of
+    each MoE id at REDUCED size equals the global path's bit for bit and
+    the JAX package's local-without-mesh forward to 1e-5."""
+    jcfg = dataclasses.replace(jget_config(arch, reduced=True),
+                               moe_impl="local")
+    cfg = get_config(arch, reduced=True)
+    jparams = jinit_model(jcfg, jax.random.PRNGKey(0))[0]
+    params = params_from_numpy(_np_tree(jparams), device="cpu")
+    tok = np.random.default_rng(0).integers(0, cfg.vocab, (2, 16)) \
+        .astype(np.int32)
+    batch = {"tokens": torch.from_numpy(tok)}
+    local, aux_l = forward(dataclasses.replace(cfg, moe_impl="local"),
+                           params, batch)
+    glob, aux_g = forward(cfg, params, batch)
+    assert torch.equal(local, glob) and torch.equal(aux_l, aux_g)
+    from repro.models import forward as jforward
+    want, jaux = jforward(jcfg, jparams, {"tokens": jnp.asarray(tok)})
+    np.testing.assert_allclose(local.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(float(aux_l), float(jaux), rtol=1e-5)
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)

@@ -13,7 +13,8 @@ package's, on the same numpy inputs in f32:
 * the mixtral-8x22b architecture at REDUCED size (forward, aux,
   ``train_loss`` and gradients, the chunked path, prefill then decode at
   every position, layout: ``torch_family_checks``);
-* ``moe_impl="local"`` (the shard_map path) is refused, naming slice F.
+* ``moe_impl="local"`` without a mesh is the global path, as in the JAX
+  package (the per-shard path itself: ``test_torch_mesh.py``).
 """
 
 import dataclasses
@@ -215,11 +216,31 @@ def test_forced_routing_replays_the_given_experts():
     torch.testing.assert_close(y3.reshape(5, -1), want, rtol=1e-6, atol=1e-6)
 
 
-def test_local_dispatch_is_refused_naming_its_slice():
-    _, cfg, _, p = _moe_params("mixtral-8x22b", 0)
-    cfg = dataclasses.replace(cfg, moe_impl="local")
-    with pytest.raises(NotImplementedError, match="slice F"):
-        moe.apply_moe(p, cfg, torch.zeros((1, 2, cfg.d_model)))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_local_dispatch_without_a_mesh_is_the_global_path(arch):
+    """``apply_moe`` with ``moe_impl="local"`` and no mesh installed
+    falls back to the global dispatch, as the JAX package's does: the
+    same output, aux and routing as the global path, and the JAX
+    package's local-without-mesh result to rtol 1e-5 / atol 1e-6; the
+    local path's fallback counter does not move (it counts only the
+    reference's two fallbacks under a mesh)."""
+    jcfg, cfg, jp, p = _moe_params(arch, 0)
+    x = np.random.default_rng(3).normal(
+        size=(2, 5, cfg.d_model)).astype(np.float32)
+    before = dict(moe.local_fallbacks)
+    with moe.tap_routing() as tap_l:
+        y_l, aux_l = moe.apply_moe(
+            p, dataclasses.replace(cfg, moe_impl="local"),
+            torch.from_numpy(x))
+    with moe.tap_routing() as tap_g:
+        y_g, aux_g = moe.apply_moe(p, cfg, torch.from_numpy(x))
+    assert moe.local_fallbacks == before
+    assert torch.equal(y_l, y_g) and torch.equal(aux_l, aux_g)
+    assert torch.equal(tap_l.expert_ids[0], tap_g.expert_ids[0])
+    want, jaux = jmoe.apply_moe(jp, dataclasses.replace(
+        jcfg, moe_impl="local"), jnp.asarray(x))
+    np.testing.assert_allclose(y_l.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(float(aux_l), float(jaux), rtol=1e-5)
 
 
 # ---------------------------------------------------------------------------
