@@ -1,0 +1,17 @@
+"""Stream time of the ``pod.params`` spans (``DeltaSyncPod.params``:
+every dot decompressed and summed onto the initial parameters) in a
+traced round, summed over the pods (``repro_torch.obs.trace``, CUDA
+events; the slice's total divided by its rounds). ``None`` where the program
+records no spans or no stream time."""
+
+NAMES = ("pod.params",)
+
+
+def read(run):
+    from repro_torch.obs import trace
+    if not hasattr(trace, "spans"):
+        return None
+    d = [s["stream_s"] for s in trace.spans()["spans"] if s["name"] in NAMES]
+    if not d or None in d:
+        return None
+    return 1e3 * sum(d) / run.cell.mix["trace_rounds"]

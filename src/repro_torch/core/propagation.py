@@ -64,6 +64,7 @@ import zlib
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, FrozenSet, List, Optional, Sequence
 
+from ..obs.trace import spanned
 from .digest import StoreDigest, digest_diff, store_digest
 from .sim import Node, structural_size
 from .store import LatticeStore
@@ -691,6 +692,7 @@ class Replica(Node):
         self.c += 1
 
     # -- paper: periodically ----------------------------------------------------
+    @spanned("replica.periodic")
     def on_periodic(self) -> None:
         if not self.alive or not self.neighbors:
             return
@@ -939,6 +941,7 @@ class Replica(Node):
             self._trace_join(src, d, "handoff", self._rx_bytes, before)
 
     # -- paper: on receiveⱼ,ᵢ ---------------------------------------------------
+    @spanned("replica.receive")
     def on_receive(self, src: str, msg: Any) -> None:
         if self.tracer is not None:
             self._rx_bytes = (len(msg)

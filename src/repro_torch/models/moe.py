@@ -56,6 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from . import hints
+from ..obs import trace
 from ..tree import flatten
 from .layers import _gelu, _normal
 
@@ -142,9 +143,17 @@ def _act(h, g, act: str):
 
 
 # ---------------------------------------------------------------------------
-# Routing, dispatch and combine
+# Routing, dispatch and combine (each a span of a serve step while the
+# profiler records: ``obs.trace``)
 # ---------------------------------------------------------------------------
 
+# the outermost spans of a serve step, the only ones the MoE's spans and
+# counters record under: a training forward under ``checkpoint`` runs again
+# in the backward, and its spans would fire twice
+_SERVE_ROOTS = ("prefill", "decode_step")
+
+
+@trace.spanned("moe.route", within=_SERVE_ROOTS)
 def _route(router, cfg, xf):
     """Returns (gate_vals [N,K] f32, expert_ids [N,K] int64, aux)."""
     m = cfg.moe
@@ -174,6 +183,7 @@ def _expert_counts(expert_ids, E: int) -> torch.Tensor:
         .scatter_add_(0, flat, torch.ones_like(flat))
 
 
+@trace.spanned("moe.dispatch", within=_SERVE_ROOTS)
 def _dispatch_table(expert_ids, E: int, capacity: int):
     """Sorted-scatter table [E, C] int32 of flat (token·K) indices, the
     sentinel M where a slot is empty. Pairs past an expert's capacity are
@@ -195,12 +205,31 @@ def _dispatch_table(expert_ids, E: int, capacity: int):
     return table[:, :capacity].contiguous(), M
 
 
+def _note_drops(expert_ids, table, M: int) -> None:
+    """The dispatch's dropped (token, k) pairs, ``M`` less the table's
+    real entries (a 0-d device tensor, no sync), into :func:`tap_routing`'s
+    record and the ``moe.routed_pairs`` / ``moe.dropped_pairs`` counters:
+    one count feeds both."""
+    counting = trace.recording(_SERVE_ROOTS)
+    if _tap is None and not counting:
+        return
+    dropped = M - (table < M).sum()
+    if _tap is not None:
+        _tap.expert_ids.append(expert_ids)
+        _tap.drops.append(dropped)
+    if counting:
+        trace.count("moe.routed_pairs", M)
+        trace.count("moe.dropped_pairs", dropped)
+
+
+@trace.spanned("moe.dispatch", within=_SERVE_ROOTS)
 def _gather_tokens(xf, table, K: int):
     N, d = xf.shape
     x_pad = torch.cat([xf, xf.new_zeros((1, d))], dim=0)
     return x_pad[(table // K).long()]                     # [E, C, d]
 
 
+@trace.spanned("moe.combine", within=_SERVE_ROOTS)
 def _combine_tokens(y_e, gate_vals, table, N: int, K: int):
     """Each (token, k) pair's gated expert output (0 where it was
     dropped), summed over k (in f32, then the compute dtype, as
@@ -221,12 +250,14 @@ def _combine_tokens(y_e, gate_vals, table, N: int, K: int):
     return out.to(torch.float32).sum(dim=1).to(y_e.dtype)
 
 
+@trace.spanned("moe.experts", within=_SERVE_ROOTS)
 def _expert_ffn(p, cfg, x_e):
     h = torch.bmm(x_e, p["wi"])
     g = torch.bmm(x_e, p["wg"]) if "wg" in p else None
     return torch.bmm(_act(h, g, cfg.act), p["wo"])
 
 
+@trace.spanned("moe.experts", within=_SERVE_ROOTS)
 def _shared_experts(p, cfg, xf):
     sp = p["shared"]
     hs = torch.matmul(xf, sp["wi"])
@@ -257,9 +288,7 @@ def _apply_moe_global(p: Dict, cfg, x: torch.Tensor,
     if capacity is None:
         capacity = moe_capacity(cfg, N)
     table, M = _dispatch_table(expert_ids, m.num_experts, capacity)
-    if _tap is not None:
-        _tap.expert_ids.append(expert_ids)
-        _tap.drops.append(M - (table < M).sum())
+    _note_drops(expert_ids, table, M)
     x_e = _gather_tokens(xf, table, m.top_k)
     y_e = _expert_ffn(p, cfg, x_e)
     y = _combine_tokens(y_e, gate_vals, table, N, m.top_k)
@@ -372,9 +401,7 @@ def _apply_moe_local(p: Dict, cfg, x: torch.Tensor, ctx
             gate_vals, expert_ids, aux = _route(router, cfg, xme)
             table, M = _dispatch_table(expert_ids, E,
                                        moe_capacity(cfg, chunk))
-            if _tap is not None:
-                _tap.expert_ids.append(expert_ids)
-                _tap.drops.append(M - (table < M).sum())
+            _note_drops(expert_ids, table, M)
             x_e = _gather_tokens(xme, table, K)           # [E, cap, d]
             cap = x_e.shape[1]
             # to the expert owners: [E, cap] → [E/G, G·cap]
@@ -392,9 +419,7 @@ def _apply_moe_local(p: Dict, cfg, x: torch.Tensor, ctx
         # partial sum over "model"
         gate_vals, expert_ids, aux = _route(router, cfg, xf)
         table, M = _dispatch_table(expert_ids, E, moe_capacity(cfg, N_loc))
-        if _tap is not None:
-            _tap.expert_ids.append(expert_ids)
-            _tap.drops.append(M - (table < M).sum())
+        _note_drops(expert_ids, table, M)
         x_e = _gather_tokens(xf, table, K)
         y_e = _expert_ffn(pp, cfg, x_e)                   # partial over f
         y = _combine_tokens(y_e, gate_vals, table, N_loc, K)

@@ -32,6 +32,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..obs.trace import spanned
 from ..tree import flatten, tree_map
 from . import attention as attn_mod
 from . import hints
@@ -483,6 +484,7 @@ def train_loss(cfg: ModelConfig, params: Dict, batch: Dict,
     return loss + AUX_LOSS_WEIGHT * aux
 
 
+@spanned("prefill")
 def prefill(cfg: ModelConfig, params: Dict, batch: Dict, max_len: int
             ) -> Tuple[torch.Tensor, List]:
     """Run the prompt; returns (last-position logits [b, 1, vocab] f32,
@@ -494,6 +496,7 @@ def prefill(cfg: ModelConfig, params: Dict, batch: Dict, max_len: int
     return lm_logits(params["embed"], cfg, x[:, -1:, :]), caches
 
 
+@spanned("decode_step")
 def decode_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                 pos: torch.Tensor, caches: List
                 ) -> Tuple[torch.Tensor, List]:

@@ -4,7 +4,10 @@ One subsystem, four surfaces (DESIGN.md §12):
 
 * :mod:`repro_torch.obs.trace`    — :class:`Tracer`, the structured event bus
   every engine layer emits into (deterministic-clock mode makes sim and
-  socket traces comparable).
+  socket traces comparable), and the program's spans and counters, which
+  record while ``torch.profiler`` does (:func:`~repro_torch.obs.trace.span`,
+  :func:`~repro_torch.obs.trace.count`,
+  :func:`~repro_torch.obs.trace.spans`).
 * :mod:`repro_torch.obs.registry` — :class:`Registry` (counters / gauges /
   histograms with label sets) plus absorbers for the counters the repo
   already keeps (``NetStats``/``LinkStats``/``KernelCounters``) and the

@@ -22,6 +22,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from .. import tree as tu
+from ..obs.trace import spanned
 
 
 @dataclass(frozen=True)
@@ -84,6 +85,7 @@ def _global_norm(tree: Any) -> torch.Tensor:
                           for x in tu.leaves(tree)))
 
 
+@spanned("train.optimizer")
 @torch.no_grad()
 def adamw_update(params: Any, grads: Any, state: Dict[str, Any],
                  cfg: AdamWConfig

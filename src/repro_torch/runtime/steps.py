@@ -21,6 +21,7 @@ from .. import tree as tu
 from ..models import decode_step as model_decode
 from ..models import prefill as model_prefill
 from ..models import train_loss
+from ..obs.trace import spanned
 from ..optim import AdamWConfig, adamw_update
 
 
@@ -63,6 +64,9 @@ def make_train_step(cfg, tcfg: TrainConfig = TrainConfig()) -> Callable:
             grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), treedef.unflatten(list(grads))
 
+    # the step's span carries the caching allocator's retries, device
+    # allocations and frees across it (on CUDA)
+    @spanned("train_step", memory=True)
     def train_step(params, opt_state, batch):
         if tcfg.microbatches == 1:
             loss, grads = value_and_grad(params, batch)

@@ -24,6 +24,7 @@ import torch
 
 from .. import tree as tu
 from ..dtypes import to_torch
+from ..obs.trace import spanned
 
 
 def _topk_sparsify(x: torch.Tensor, k: int
@@ -52,6 +53,7 @@ class TopKCompressor:
         self.rate = rate
         self.residual: Optional[Any] = None
 
+    @spanned("topk.compress")
     def compress(self, update: Any) -> Any:
         if self.residual is None:
             self.residual = tu.tree_map(torch.zeros_like, update)

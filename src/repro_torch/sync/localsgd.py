@@ -32,6 +32,7 @@ from typing import Any, Callable, Optional
 from .. import tree as tu
 from ..core.propagation import Replica, ShippingPolicy
 from ..core.tensor_lattice import DotSumStore, IntervalSum
+from ..obs.trace import spanned
 from .compression import TopKCompressor
 
 
@@ -85,6 +86,7 @@ class DeltaSyncPod(Replica):
         self.round_idx = 0
 
     # -- current view -----------------------------------------------------------
+    @spanned("pod.params")
     def params(self) -> Any:
         if self.compressor is not None:
             # dots carry sparse updates: decompress each then sum
@@ -97,6 +99,7 @@ class DeltaSyncPod(Replica):
         return self.outer.materialize(self.X)
 
     # -- one training round ------------------------------------------------------
+    @spanned("pod.round")
     def do_round(self) -> None:
         base = self.params()
         new_params = self.local_update_fn(base, self.round_idx, self.id)

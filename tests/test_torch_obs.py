@@ -206,13 +206,20 @@ def _tracer_mechanics(pk, path):
     b.emit("write", keys=["y"], tag=0)
     return (tr.events(), pk.obs.load_trace(path), sampled.events(),
             sampled.dropped, sampled.counts(), pk.obs.merge_events(a, b),
-            sorted(pk.obs.EVENT_KINDS))
+            sorted(pk.obs.EVENT_KINDS - PROGRAM_KINDS))
+
+
+# the port's own kinds: its program spans and counters (obs.trace.span,
+# obs.trace.count), which the reference does not have
+PROGRAM_KINDS = {"span", "count"}
 
 
 def test_tracer_mechanics_match_reference(tmp_path):
     want = _tracer_mechanics(PKGS["jax"], str(tmp_path / "r.jsonl"))
     got = _tracer_mechanics(PKGS["port"], str(tmp_path / "t.jsonl"))
     assert got == want
+    assert PROGRAM_KINDS <= tobs.EVENT_KINDS
+    assert not PROGRAM_KINDS & PKGS["jax"].obs.EVENT_KINDS
     with pytest.raises(ValueError, match="unknown trace event kind"):
         tobs.Tracer(node="a").emit("delta_shiip", dst="b")
 
